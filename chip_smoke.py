@@ -1,0 +1,380 @@
+#!/usr/bin/env python3
+"""Smoke run of repro_torch on one NVIDIA card, at the paper's parameters.
+
+    python3 chip_smoke.py
+
+Phases; any failure exits non-zero and prints no result:
+
+1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and print
+   the card's name and power limit.
+2. At every shape that HE Mul gives a kernel at logN=16, logQ=1200, β=2^32
+   (``paper_params()``), hold the kernel against its plain torch version on
+   the same seeded inputs, bit for bit, and time both with CUDA events
+   (the L2 cache is flushed before each timed launch).
+3. Drive the main path: keygen → encrypt_message ×2 (2^15 slots) → he_mul →
+   rescale → he_mod_down + he_add → decrypt_message. The launch counts are
+   set to 0 just before and read just after; every kernel must have
+   launched, he_mul alone must launch each kernel as often as the Fig. 2
+   pipeline says, the decrypted product must be within 1e-3 of numpy's (the
+   product plus the first message within 2e-3), and he_mul with
+   ``use_kernels=False`` must give the same words.
+4. Time HE Mul (median of several runs) through the kernels and through
+   the plain versions, and trace one HE Mul with torch.profiler: device
+   time by kernel and the device's busy share.
+
+Before the last line it prints the nvidia-smi line, one JSON line of
+per-kernel numbers (``{"kernels": [...]}``) and JSON lines for HE Mul's
+times and its trace;
+the last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX
+and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
+# 32-bit integer multiplies per second: Hopper has 64 INT32 lanes per SM,
+# half its 128 FP32 lanes, so a quarter of the 67 TFLOP/s float32 figure
+# (which counts an FMA as two operations).
+INT32_MUL_PER_S = 67e12 / 4
+# launches per HE Mul (Fig. 2) at each shape kernel_cases() gives, region 1
+# then region 2: 4× CRT→NTT at np₁ and 1× at np₂, 3× modmul at np₁, 3×
+# iNTT→iCRT at np₁ and 2× at np₂
+HE_MUL_SHAPE_LAUNCHES = {"modmul": (3,), "ntt": (4, 1), "intt": (3, 2),
+                         "crt": (4, 1), "icrt": (3, 2)}
+HE_MUL_LAUNCHES = {k: sum(v) for k, v in HE_MUL_SHAPE_LAUNCHES.items()}
+SOURCES = {
+    "modmul": ("kernels/csrc/modmul.cu",
+               "src/repro/kernels/modmul/modmul.py:33"),
+    "ntt": ("kernels/csrc/ntt.cu", "src/repro/kernels/ntt/ntt.py:93"),
+    "intt": ("kernels/csrc/ntt.cu", "src/repro/kernels/ntt/ntt.py:113"),
+    "crt": ("kernels/csrc/crt.cu", "src/repro/kernels/crt/crt.py:96"),
+    "icrt": ("kernels/csrc/icrt.cu", "src/repro/kernels/icrt/icrt.py:98"),
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound_ms(nbytes: float, nmul: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nmul / INT32_MUL_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ms(torch, fn, reps: int, flush) -> float:
+    """Median device time of fn() over reps runs, each after an L2 flush."""
+    fn()                                     # warm-up
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def kernel_cases(torch, np, params, dev):
+    """(kernel, shape label, kernel call, plain call, bytes, multiplies)
+    for every shape HE Mul gives a kernel at `params`."""
+    from repro_torch.core.context import device_icrt_tables, device_tables
+    from repro_torch.kernels.crt.ops import crt_op
+    from repro_torch.kernels.crt.ref import crt_ref
+    from repro_torch.kernels.icrt.ops import icrt_op
+    from repro_torch.kernels.icrt.ref import icrt_ref
+    from repro_torch.kernels.modmul.ops import pointwise_mont_op
+    from repro_torch.kernels.modmul.ref import pointwise_mont_ref
+    from repro_torch.kernels.ntt.ops import intt_op, ntt_op
+    from repro_torch.kernels.ntt.ref import intt_ref, ntt_ref
+
+    g = device_tables(params, dev)
+    logq = params.logQ
+    N, logN = params.N, params.logN
+    K = params.qlimbs(logq)
+    np1, np2 = params.np_region1(logq), params.np_region2(logq)
+    ks_limbs = params.limbs_for_bits(logq + params.logQ) + 1
+    rng = np.random.default_rng(2024)
+    primes = g.primes.cpu().numpy().view(np.uint32).astype(np.uint64)
+
+    def words(a):
+        return torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(dev)
+
+    def residues(npn):
+        r = rng.integers(0, 1 << 62, size=(npn, N), dtype=np.uint64)
+        return words(r % primes[:npn, None])
+
+    cases = []
+    a, b = residues(np1), residues(np1)
+    mm = (g.primes[:np1], g.pprime[:np1], g.r2[:np1])
+    cases.append(("modmul", f"np={np1}",
+                  lambda: pointwise_mont_op(a, b, *mm),
+                  lambda: pointwise_mont_ref(a, b, *mm),
+                  4 * (3 * np1 * N + 3 * np1), 6 * np1 * N))
+    for npn in (np1, np2):
+        x = residues(npn)
+        fwd = (g.psi_rev[:npn], g.psi_rev_shoup[:npn], g.primes[:npn])
+        inv = (g.ipsi_rev[:npn], g.ipsi_rev_shoup[:npn], g.n_inv[:npn],
+               g.n_inv_shoup[:npn], g.primes[:npn])
+        ev = ntt_ref(x, *fwd)
+        butterflies = npn * (N // 2) * logN
+        cases.append(("ntt", f"np={npn}", lambda x=x, f=fwd: ntt_op(x, *f),
+                      lambda x=x, f=fwd: ntt_ref(x, *f),
+                      4 * (4 * npn * N + npn), 3 * butterflies))
+        cases.append(("intt", f"np={npn}",
+                      lambda e=ev, i=inv: intt_op(e, *i),
+                      lambda e=ev, i=inv: intt_ref(e, *i),
+                      4 * (4 * npn * N + 3 * npn),
+                      3 * (butterflies + npn * N)))
+    limbs = words(rng.integers(0, 1 << 32, size=(N, K), dtype=np.uint64))
+    for npn in (np1, np2):
+        tb = g.crt_tb[:npn, :K].contiguous()
+        tbs = g.crt_tb_shoup[:npn, :K].contiguous()
+        args = (limbs, tb, tbs, g.primes[:npn])
+        cases.append(("crt", f"K={K} np={npn}",
+                      lambda a=args: crt_op(*a), lambda a=args: crt_ref(*a),
+                      4 * (N * K + 2 * npn * K + npn + npn * N),
+                      npn * N * (K + 9)))
+    for npn, out_limbs in ((np1, K), (np2, ks_limbs)):
+        tabs = device_icrt_tables(params, npn, dev)
+        r = residues(npn)
+        PL, A = tabs.plimbs, tabs.accum_limbs
+        cases.append(("icrt", f"np={npn} out={out_limbs}",
+                      lambda r=r, t=tabs, o=out_limbs: icrt_op(r, t, g, o),
+                      lambda r=r, t=tabs, o=out_limbs: icrt_ref(r, t, g, o),
+                      4 * (npn * N + npn * (3 + PL) + 2 * A + N * out_limbs)
+                      + 8 * npn, npn * N * (3 + PL)))
+    return cases
+
+
+def check_kernels(torch, np, params, dev, flush) -> dict:
+    """Phase 2: every kernel against its plain version, and their times."""
+    per_kernel = {}
+    for name, shape, kern, plain, nbytes, nmul in kernel_cases(
+            torch, np, params, dev):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max().item())
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"{name} {shape}: kernel differs from its plain version "
+                f"(max abs err {err})")
+        b_ms, b_by = bound_ms(nbytes, nmul)
+        row = {"shape": shape, "max_abs_err": err,
+               "ms": time_ms(torch, kern, 20, flush),
+               "plain_ms": time_ms(torch, plain, 3, flush),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "int32_muls": nmul}
+        per_kernel.setdefault(name, []).append(row)
+        print(f"kernel {name:6s} {shape:14s} bitwise ok  "
+              f"{row['ms']:.4f} ms  plain {row['plain_ms']:.3f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return per_kernel
+
+
+def drive_main_path(torch, np, params, dev, common) -> dict:
+    """Phase 3: the user's path through the scheme API, on the kernels."""
+    from repro_torch.core import heaan as H
+    from repro_torch.core.keys import keygen
+    from repro_torch.core.rns import PipelineConfig
+
+    n_slots = params.N // 4
+    rng = np.random.default_rng(7)
+    # real and imaginary parts uniform in [0, 1), as HEAAN's own tests
+    # draw them (randomComplexArray)
+    z1, z2 = (rng.random(n_slots) + 1j * rng.random(n_slots)
+              for _ in range(2))
+
+    common.reset_launches()
+    t0 = time.perf_counter()
+    sk, pk, evk = keygen(params, seed=0, device=dev)
+    c1 = H.encrypt_message(z1, pk, params, seed=11)
+    c2 = H.encrypt_message(z2, pk, params, seed=12)
+    before = dict(common.LAUNCHES)
+    c3 = H.he_mul(c1, c2, evk, params)
+    torch.cuda.synchronize()
+    mul_launches = {k: common.LAUNCHES[k] - before[k] for k in before}
+    c4 = H.rescale(c3, params)
+    c5 = H.he_add(c4, H.he_mod_down(c1, params, c4.logq))
+    prod = H.decrypt_message(c4, sk, params)
+    total = H.decrypt_message(c5, sk, params)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+
+    require(all(launches[k] > 0 for k in HE_MUL_LAUNCHES),
+            f"a kernel never launched on the main path: {launches}")
+    require(mul_launches == HE_MUL_LAUNCHES,
+            f"he_mul launched {mul_launches}, expected {HE_MUL_LAUNCHES}")
+    err_mul = float(np.abs(prod - z1 * z2).max())
+    err_sum = float(np.abs(total - (z1 * z2 + z1)).max())
+    require(np.isfinite(prod).all() and prod.shape == (n_slots,),
+            "decrypted product is not finite or has the wrong shape")
+    # 1e-3 is tests/test_heaan.py's he_mul tolerance; a sum of two
+    # ciphertexts gets twice its operands' tolerance, as there
+    require(err_mul < 1e-3 and err_sum < 2e-3,
+            f"decryption error {err_mul:.3e} (limit 1e-3) / {err_sum:.3e} "
+            f"(limit 2e-3)")
+    plain = H.he_mul(c1, c2, evk, params, PipelineConfig(use_kernels=False))
+    require(torch.equal(plain.ax, c3.ax) and torch.equal(plain.bx, c3.bx),
+            "he_mul through the kernels differs from the plain path")
+    print(f"main path ok in {path_s:.2f} s: max |err| product {err_mul:.3e}"
+          f", product+z1 {err_sum:.3e}; launches {launches}; he_mul "
+          f"{mul_launches}; kernel he_mul == plain he_mul", flush=True)
+    return {"launches": launches, "he_mul_launches": mul_launches,
+            "err_mul": err_mul, "err_sum": err_sum, "path_s": path_s,
+            "operands": (c1, c2, evk)}
+
+
+def time_he_mul(torch, params, operands, reps: int, use_kernels: bool
+                ) -> list:
+    from repro_torch.core import heaan as H
+    from repro_torch.core.rns import PipelineConfig
+    cfg = PipelineConfig(use_kernels=use_kernels)
+    c1, c2, evk = operands
+    H.he_mul(c1, c2, evk, params, cfg)          # warm-up
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        H.he_mul(c1, c2, evk, params, cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def profile_he_mul(torch, params, operands) -> dict:
+    """Device time by kernel name over one HE Mul, the busy share, and the
+    device time of the port's kernels against PyTorch's own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import heaan as H
+    c1, c2, evk = operands
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        H.he_mul(c1, c2, evk, params)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(evt.name, (0.0, 0))
+            by_name[evt.name] = (ms + evt.time_range.elapsed_us() / 1e3,
+                                 n + 1)
+    device_ms = sum(ms for ms, _ in by_name.values())
+    # the .cu sources keep every kernel in a top-level anonymous namespace;
+    # PyTorch's own kernels are named void at::native::...
+    ours = [v for name, v in by_name.items() if name.removeprefix(
+        "void ").startswith("(anonymous namespace)::")]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms if wall_ms else None,
+            "device_events": sum(n for _, n in by_name.values()),
+            "port_kernel_ms": sum(ms for ms, _ in ours),
+            "port_kernel_launches": sum(n for _, n in ours),
+            "top": [[name[:80], ms, n] for name, (ms, n) in top]}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    import numpy as np
+    from repro_torch.core.params import paper_params
+    from repro_torch.kernels import common
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    lib_path = common.build()
+    common.library()
+    build_s = time.perf_counter() - t0
+    print(f"built {lib_path.relative_to(ROOT)} in {build_s:.1f} s")
+    for line in (lib_path.parent / "build.log").read_text().splitlines():
+        if "registers" in line or "spill" in line.lower():
+            print("ptxas:", line.strip())
+    card = card_line()
+    print(card, flush=True)
+
+    params = paper_params()
+    t0 = time.perf_counter()
+    from repro_torch.core.context import make_context
+    ctx = make_context(params, params.logQ, dev)
+    print(f"paper params: N={params.N} logQ={params.logQ} "
+          f"qlimbs={ctx.qlimbs} np1={ctx.np1} np2={ctx.np2} "
+          f"(tables in {time.perf_counter() - t0:.1f} s)", flush=True)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MiB
+
+    per_kernel = check_kernels(torch, np, params, dev, flush)
+    path = drive_main_path(torch, np, params, dev, common)
+    mul_ms = time_he_mul(torch, params, path["operands"], 5, True)
+    plain_ms = time_he_mul(torch, params, path["operands"], 2, False)
+    per_he_mul = {key: sum(n * r[key] for k, counts in
+                           HE_MUL_SHAPE_LAUNCHES.items()
+                           for n, r in zip(counts, per_kernel[k]))
+                  for key in ("ms", "bound_ms")}
+
+    kernels = []
+    for name, rows in per_kernel.items():
+        main_row = rows[0]                       # region-1 shape
+        src, tpu = SOURCES[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/{src}", "replaces": tpu,
+            "launches": path["launches"][name],
+            "he_mul_launches": path["he_mul_launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "bitwise": True, "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": None,
+            "bytes": main_row["bytes"], "shapes": rows})
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"he_mul": {
+        "params": "paper_params(): logN=16 logQ=1200 beta=2^32",
+        "ms_median": statistics.median(mul_ms), "ms": mul_ms,
+        "plain_ms": plain_ms, "kernel_ms_sum": per_he_mul["ms"],
+        "kernel_bound_ms_sum": per_he_mul["bound_ms"],
+        "main_path_s": path["path_s"], "err_mul": path["err_mul"],
+        "err_sum": path["err_sum"], "card": card}}))
+    print(json.dumps({"he_mul_profile": profile_he_mul(
+        torch, params, path["operands"])}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        sys.exit(1)

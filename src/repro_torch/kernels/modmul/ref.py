@@ -1,0 +1,13 @@
+"""Plain torch version of the pointwise-modmul kernel."""
+
+from __future__ import annotations
+
+from repro_torch.core.wordops import mont_modmul, narrow, wide
+
+__all__ = ["pointwise_mont_ref"]
+
+
+def pointwise_mont_ref(a, b, primes, pprime, r2):
+    """(np, N) a⊙b mod p via two Montgomery REDCs; int32 words."""
+    col = [wide(v)[:, None] for v in (primes, pprime, r2)]
+    return narrow(mont_modmul(wide(a), wide(b), *col))

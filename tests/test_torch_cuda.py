@@ -1,0 +1,112 @@
+"""repro_torch's CUDA kernels against their plain versions, on a card.
+
+This file imports neither JAX nor the JAX package, so it runs on a machine
+that has only PyTorch and the CUDA toolkit:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Without a card every test skips. The plain versions themselves are held
+against the JAX package in the other tests/test_torch_*.py files.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import heaan as H
+from repro_torch.core import make_context
+from repro_torch.core import test_params as small_params
+from repro_torch.core.keys import keygen
+from repro_torch.core.rns import PipelineConfig
+from repro_torch.kernels import common
+from repro_torch.kernels.crt.ops import crt_op
+from repro_torch.kernels.crt.ref import crt_ref
+from repro_torch.kernels.icrt.ops import icrt_op
+from repro_torch.kernels.icrt.ref import icrt_ref
+from repro_torch.kernels.modmul.ops import pointwise_mont_op
+from repro_torch.kernels.modmul.ref import pointwise_mont_ref
+from repro_torch.kernels.ntt.ops import intt_op, ntt_op
+from repro_torch.kernels.ntt.ref import intt_ref, ntt_ref
+from repro_torch.nt.residue import ints_to_limb_array
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _t(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32)
+                            .view(np.int32)).to(device)
+
+
+def _residues(primes, npn, N, seed):
+    rng = np.random.default_rng(seed)
+    p = primes[:npn].astype(np.uint64)
+    return (rng.integers(0, 1 << 62, size=(npn, N)).astype(np.uint64)
+            % p[:, None]).astype(np.uint32)
+
+
+@pytest.mark.parametrize("logN,logQ", [(4, 96), (10, 120), (14, 120),
+                                       (16, 240)])
+def test_cuda_kernels_match_plain_versions(dev, logN, logQ):
+    """Every kernel equals its plain version bit for bit, and each wrapper
+    call counts one launch."""
+    p = small_params(logN=logN, beta_bits=32, logQ=logQ, logp=24)
+    tc = make_context(p, logQ, dev)
+    tg = tc.tables
+    npn, N, K = tc.np1, tc.N, tc.qlimbs
+    primes = tg.primes.cpu().numpy().view(np.uint32)
+    common.reset_launches()
+    x = _t(_residues(primes, npn, N, 1), dev)
+    b = _t(_residues(primes, npn, N, 2), dev)
+    fwd = (tg.psi_rev[:npn], tg.psi_rev_shoup[:npn], tg.primes[:npn])
+    inv = (tg.ipsi_rev[:npn], tg.ipsi_rev_shoup[:npn], tg.n_inv[:npn],
+           tg.n_inv_shoup[:npn], tg.primes[:npn])
+    ev = ntt_op(x, *fwd)
+    assert torch.equal(ev, ntt_ref(x, *fwd))
+    back = intt_op(ev, *inv)
+    assert torch.equal(back, intt_ref(ev, *inv)) and torch.equal(back, x)
+    mm = (tg.primes[:npn], tg.pprime[:npn], tg.r2[:npn])
+    assert torch.equal(pointwise_mont_op(x, b, *mm),
+                       pointwise_mont_ref(x, b, *mm))
+    pr = random.Random(logN)
+    limbs = _t(ints_to_limb_array([pr.getrandbits(64 * K) for _ in range(N)],
+                                  2 * K, 32), dev)
+    tb = tg.crt_tb[:npn, :2 * K].contiguous()
+    tbs = tg.crt_tb_shoup[:npn, :2 * K].contiguous()
+    assert torch.equal(crt_op(limbs, tb, tbs, tg.primes[:npn]),
+                       crt_ref(limbs, tb, tbs, tg.primes[:npn]))
+    for ol in (K, tc.icrt1.accum_limbs + 2):
+        assert torch.equal(icrt_op(x, tc.icrt1, tg, ol),
+                           icrt_ref(x, tc.icrt1, tg, ol))
+    torch.cuda.synchronize()
+    assert common.LAUNCHES == {"modmul": 1, "ntt": 1, "intt": 1,
+                               "crt": 1, "icrt": 2}
+
+
+def test_cuda_he_mul_equals_plain_path(dev):
+    """HE Mul through the kernels gives the plain path's words, launches
+    each kernel as Fig. 2 says, and decrypts to the product."""
+    p = small_params(logN=10, beta_bits=32, logQ=240, logp=24)
+    sk, pk, evk = keygen(p, seed=3, device=dev)
+    rng = np.random.default_rng(4)
+    z1, z2 = (rng.normal(size=64) + 1j * rng.normal(size=64)
+              for _ in range(2))
+    c1 = H.encrypt_message(z1, pk, p, seed=5)
+    c2 = H.encrypt_message(z2, pk, p, seed=6)
+    common.reset_launches()
+    got = H.he_mul(c1, c2, evk, p)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES == {"modmul": 3, "ntt": 5, "intt": 5, "crt": 5,
+                               "icrt": 5}
+    want = H.he_mul(c1, c2, evk, p, PipelineConfig(use_kernels=False))
+    assert torch.equal(got.ax, want.ax) and torch.equal(got.bx, want.bx)
+    out = H.decrypt_message(H.rescale(got, p), sk, p)
+    assert np.abs(out - z1 * z2).max() < 1e-3
