@@ -7,10 +7,13 @@ Phases; any failure exits non-zero and prints no result:
 
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and print
    the card's name and power limit.
-2. At every shape that HE Mul gives a kernel at logN=16, logQ=1200, β=2^32
-   (``paper_params()``), hold the kernel against its plain torch version on
-   the same seeded inputs, bit for bit, and time both with CUDA events
-   (the L2 cache is flushed before each timed launch).
+2. At every shape that HE Mul and the B = 4 batched step give a kernel at
+   logN=16, logQ=1200, β=2^32 (``paper_params()``), hold the kernel and
+   each of its variants (CRT Mod-2/Mod-4, modified-Shoup NTT/iNTT) against
+   its plain torch version on the same seeded inputs, bit for bit, and time
+   both with CUDA events (the L2 cache is flushed before each timed
+   launch). A variant's bound is that of the function it computes, the
+   same as its kernel's at that shape.
 3. Drive the main path: keygen → encrypt_message ×2 (2^15 slots) → he_mul →
    rescale → he_mod_down + he_add → decrypt_message. The launch counts are
    set to 0 just before and read just after; every kernel must have
@@ -18,13 +21,25 @@ Phases; any failure exits non-zero and prints no result:
    pipeline says, the decrypted product must be within 1e-3 of numpy's (the
    product plus the first message within 2e-3), and he_mul with
    ``use_kernels=False`` must give the same words.
-4. Time HE Mul (median of several runs) through the kernels and through
-   the plain versions, and trace one HE Mul with torch.profiler: device
-   time by kernel and the device's busy share.
+4. Drive the batched step (``repro_torch.dist.he_pipeline``) at
+   ``paper_params()`` with B = 4 ciphertext pairs encrypted from seeds, on
+   three rungs of the paper's ladder through the kernels: "default" (acc3
+   CRT, exact Shoup), "mod2+modified" and "mod4". The launch counts are set
+   to 0 just before and read just after; every kernel and variant must have
+   launched, each rung its own variants. Every output must equal the
+   single-ciphertext he_mul of its pair bit for bit, the "default" rung
+   also the plain batched step; the "default" rung runs once more at B = 3.
+   Then each rung is timed (median of 5, host clock around the step and
+   ``torch.cuda.synchronize()``).
+5. Time HE Mul (median of several runs) through the kernels and through
+   the plain versions, and trace one HE Mul and one batched step with
+   torch.profiler: device time by kernel and the device's busy share.
 
 Before the last line it prints the nvidia-smi line, one JSON line of
-per-kernel numbers (``{"kernels": [...]}``) and JSON lines for HE Mul's
-times and its trace;
+per-kernel numbers (``{"kernels": [...]}``: the headline times are those
+of ``headline_shape``, HE Mul's region 1 for a kernel and the batched
+step's first shape for a variant; every shape is under ``shapes``) and JSON
+lines for HE Mul's times, the batched step's and their traces;
 the last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX
 and nothing of the JAX package.
 """
@@ -52,6 +67,19 @@ INT32_MUL_PER_S = 67e12 / 4
 HE_MUL_SHAPE_LAUNCHES = {"modmul": (3,), "ntt": (4, 1), "intt": (3, 2),
                          "crt": (4, 1), "icrt": (3, 2)}
 HE_MUL_LAUNCHES = {k: sum(v) for k, v in HE_MUL_SHAPE_LAUNCHES.items()}
+BATCH = 4                       # ciphertext pairs per batched step
+# rungs of the paper's ladder the batched step runs through the kernels:
+# keywords of make_he_mul_step, and the launches of one step (Fig. 2:
+# 5 CRT, 5 NTT, 5 iNTT, 5 iCRT, 3 Montgomery products)
+RUNGS = {
+    "default": ({}, {"crt": 5, "ntt": 5, "intt": 5, "icrt": 5,
+                     "modmul": 3}),
+    "mod2+modified": ({"crt_strategy": "mod2", "modified_shoup": True},
+                      {"crt_mod2": 5, "ntt_modified": 5, "intt_modified": 5,
+                       "icrt": 5, "modmul": 3}),
+    "mod4": ({"crt_strategy": "mod4"}, {"crt_mod4": 5, "ntt": 5, "intt": 5,
+                                        "icrt": 5, "modmul": 3}),
+}
 SOURCES = {
     "modmul": ("kernels/csrc/modmul.cu",
                "src/repro/kernels/modmul/modmul.py:33"),
@@ -59,6 +87,12 @@ SOURCES = {
     "intt": ("kernels/csrc/ntt.cu", "src/repro/kernels/ntt/ntt.py:113"),
     "crt": ("kernels/csrc/crt.cu", "src/repro/kernels/crt/crt.py:96"),
     "icrt": ("kernels/csrc/icrt.cu", "src/repro/kernels/icrt/icrt.py:98"),
+    "crt_mod2": ("kernels/csrc/crt.cu", "src/repro/kernels/crt/crt.py:49"),
+    "crt_mod4": ("kernels/csrc/crt.cu", "src/repro/kernels/crt/crt.py:49"),
+    "ntt_modified": ("kernels/csrc/ntt.cu",
+                     "src/repro/kernels/ntt/ntt.py:32"),
+    "intt_modified": ("kernels/csrc/ntt.cu",
+                      "src/repro/kernels/ntt/ntt.py:54"),
 }
 
 
@@ -103,12 +137,15 @@ def time_ms(torch, fn, reps: int, flush) -> float:
 
 def kernel_cases(torch, np, params, dev):
     """(kernel, shape label, kernel call, plain call, bytes, multiplies)
-    for every shape HE Mul gives a kernel at `params`."""
+    for every shape HE Mul (B = 1) and the batched step (B = BATCH) give a
+    kernel or variant at `params`. A batch stacks B·np rows for the
+    per-row kernels (row r takes the tables of prime r mod np) and B·N
+    coefficients for CRT and iCRT."""
     from repro_torch.core.context import device_icrt_tables, device_tables
     from repro_torch.kernels.crt.ops import crt_op
     from repro_torch.kernels.crt.ref import crt_ref
     from repro_torch.kernels.icrt.ops import icrt_op
-    from repro_torch.kernels.icrt.ref import icrt_ref
+    from repro_torch.kernels.icrt.ref import icrt_inputs, icrt_ref
     from repro_torch.kernels.modmul.ops import pointwise_mont_op
     from repro_torch.kernels.modmul.ref import pointwise_mont_ref
     from repro_torch.kernels.ntt.ops import intt_op, ntt_op
@@ -126,50 +163,74 @@ def kernel_cases(torch, np, params, dev):
     def words(a):
         return torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(dev)
 
-    def residues(npn):
-        r = rng.integers(0, 1 << 62, size=(npn, N), dtype=np.uint64)
-        return words(r % primes[:npn, None])
+    def residues(npn, B=1):
+        r = rng.integers(0, 1 << 62, size=(B * npn, N), dtype=np.uint64)
+        return words(r % np.tile(primes[:npn], B)[:, None])
 
     cases = []
-    a, b = residues(np1), residues(np1)
-    mm = (g.primes[:np1], g.pprime[:np1], g.r2[:np1])
-    cases.append(("modmul", f"np={np1}",
-                  lambda: pointwise_mont_op(a, b, *mm),
-                  lambda: pointwise_mont_ref(a, b, *mm),
-                  4 * (3 * np1 * N + 3 * np1), 6 * np1 * N))
-    for npn in (np1, np2):
-        x = residues(npn)
-        fwd = (g.psi_rev[:npn], g.psi_rev_shoup[:npn], g.primes[:npn])
-        inv = (g.ipsi_rev[:npn], g.ipsi_rev_shoup[:npn], g.n_inv[:npn],
-               g.n_inv_shoup[:npn], g.primes[:npn])
-        ev = ntt_ref(x, *fwd)
-        butterflies = npn * (N // 2) * logN
-        cases.append(("ntt", f"np={npn}", lambda x=x, f=fwd: ntt_op(x, *f),
-                      lambda x=x, f=fwd: ntt_ref(x, *f),
-                      4 * (4 * npn * N + npn), 3 * butterflies))
-        cases.append(("intt", f"np={npn}",
-                      lambda e=ev, i=inv: intt_op(e, *i),
-                      lambda e=ev, i=inv: intt_ref(e, *i),
-                      4 * (4 * npn * N + 3 * npn),
-                      3 * (butterflies + npn * N)))
-    limbs = words(rng.integers(0, 1 << 32, size=(N, K), dtype=np.uint64))
-    for npn in (np1, np2):
-        tb = g.crt_tb[:npn, :K].contiguous()
-        tbs = g.crt_tb_shoup[:npn, :K].contiguous()
-        args = (limbs, tb, tbs, g.primes[:npn])
-        cases.append(("crt", f"K={K} np={npn}",
-                      lambda a=args: crt_op(*a), lambda a=args: crt_ref(*a),
-                      4 * (N * K + 2 * npn * K + npn + npn * N),
-                      npn * N * (K + 9)))
-    for npn, out_limbs in ((np1, K), (np2, ks_limbs)):
-        tabs = device_icrt_tables(params, npn, dev)
-        r = residues(npn)
-        PL, A = tabs.plimbs, tabs.accum_limbs
-        cases.append(("icrt", f"np={npn} out={out_limbs}",
-                      lambda r=r, t=tabs, o=out_limbs: icrt_op(r, t, g, o),
-                      lambda r=r, t=tabs, o=out_limbs: icrt_ref(r, t, g, o),
-                      4 * (npn * N + npn * (3 + PL) + 2 * A + N * out_limbs)
-                      + 8 * npn, npn * N * (3 + PL)))
+    for B in (1, BATCH):
+        tag = "" if B == 1 else f" B={B}"
+        rows = B * np1
+        a, b = residues(np1, B), residues(np1, B)
+        mm = tuple(v[:np1].repeat(B) for v in (g.primes, g.pprime, g.r2))
+        cases.append(("modmul", f"np={np1}{tag}",
+                      lambda a=a, b=b, m=mm: pointwise_mont_op(a, b, *m),
+                      lambda a=a, b=b, m=mm: pointwise_mont_ref(a, b, *m),
+                      4 * (3 * rows * N + 3 * rows), 6 * rows * N))
+        for npn in (np1, np2):
+            rows = B * npn
+            x = residues(npn, B)
+            fwd = (g.psi_rev[:npn], g.psi_rev_shoup[:npn], g.primes[:npn])
+            inv = (g.ipsi_rev[:npn], g.ipsi_rev_shoup[:npn], g.n_inv[:npn],
+                   g.n_inv_shoup[:npn], g.primes[:npn])
+            ev = ntt_ref(x, *fwd)
+            butterflies = rows * (N // 2) * logN
+            # x and out once per row, the twiddle tables once per prime
+            nbytes = 4 * (2 * rows * N + 2 * npn * N + npn)
+            for mod in (False, True):
+                # one bound for the function, whatever the variant: 3
+                # multiplies per Shoup product (quotient, w·x, q·p)
+                per = 3
+                sfx = "_modified" if mod else ""
+                cases.append((
+                    "ntt" + sfx, f"np={npn}{tag}",
+                    lambda x=x, f=fwd, m=mod: ntt_op(x, *f, modified=m),
+                    lambda x=x, f=fwd, m=mod: ntt_ref(x, *f, modified=m),
+                    nbytes, per * butterflies))
+                cases.append((
+                    "intt" + sfx, f"np={npn}{tag}",
+                    lambda e=ev, i=inv, m=mod: intt_op(e, *i, modified=m),
+                    lambda e=ev, i=inv, m=mod: intt_ref(e, *i, modified=m),
+                    nbytes + 8 * npn, per * (butterflies + rows * N)))
+        n = B * N
+        limbs = words(rng.integers(0, 1 << 32, size=(n, K), dtype=np.uint64))
+        for npn in (np1, np2):
+            tb = g.crt_tb[:npn, :K].contiguous()
+            tbs = g.crt_tb_shoup[:npn, :K].contiguous()
+            args = (limbs, tb, tbs, g.primes[:npn])
+            nbytes = 4 * (n * K + 2 * npn * K + npn + npn * n)
+            # what the function needs, whatever the strategy: K products
+            # and one fold of 3 Shoup products (the acc3 count)
+            nmul = npn * n * (K + 9)
+            for name, strategy in (("crt", "acc3"), ("crt_mod2", "mod2"),
+                                   ("crt_mod4", "mod4")):
+                cases.append((
+                    name, f"K={K} np={npn}{tag}",
+                    lambda a=args, s=strategy: crt_op(*a, strategy=s),
+                    lambda a=args, s=strategy: crt_ref(*a, strategy=s),
+                    nbytes, nmul))
+        for npn, out_limbs in ((np1, K), (np2, ks_limbs)):
+            tabs = device_icrt_tables(params, npn, dev)
+            t = icrt_inputs(tabs, g)
+            r = words(rng.integers(0, 1 << 62, size=(npn, n), dtype=np.uint64)
+                      % primes[:npn, None])
+            PL, A = tabs.plimbs, tabs.accum_limbs
+            cases.append(("icrt", f"np={npn} out={out_limbs}{tag}",
+                          lambda r=r, t=t, o=out_limbs: icrt_op(r, t, o),
+                          lambda r=r, t=t, o=out_limbs: icrt_ref(r, t, o),
+                          4 * (npn * n + npn * (3 + PL) + 2 * A
+                               + n * out_limbs) + 8 * npn,
+                          npn * n * (3 + PL)))
     return cases
 
 
@@ -185,13 +246,14 @@ def check_kernels(torch, np, params, dev, flush) -> dict:
                 f"{name} {shape}: kernel differs from its plain version "
                 f"(max abs err {err})")
         b_ms, b_by = bound_ms(nbytes, nmul)
-        row = {"shape": shape, "max_abs_err": err,
+        row = {"shape": shape, "batch": BATCH if "B=" in shape else 1,
+               "max_abs_err": err,
                "ms": time_ms(torch, kern, 20, flush),
                "plain_ms": time_ms(torch, plain, 3, flush),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                "int32_muls": nmul}
         per_kernel.setdefault(name, []).append(row)
-        print(f"kernel {name:6s} {shape:14s} bitwise ok  "
+        print(f"kernel {name:13s} {shape:20s} bitwise ok  "
               f"{row['ms']:.4f} ms  plain {row['plain_ms']:.3f} ms  "
               f"bound {b_ms:.4f} ms ({b_by})", flush=True)
     return per_kernel
@@ -218,7 +280,8 @@ def drive_main_path(torch, np, params, dev, common) -> dict:
     before = dict(common.LAUNCHES)
     c3 = H.he_mul(c1, c2, evk, params)
     torch.cuda.synchronize()
-    mul_launches = {k: common.LAUNCHES[k] - before[k] for k in before}
+    mul_launches = {k: common.LAUNCHES[k] - before[k] for k in before
+                    if common.LAUNCHES[k] - before[k]}
     c4 = H.rescale(c3, params)
     c5 = H.he_add(c4, H.he_mod_down(c1, params, c4.logq))
     prod = H.decrypt_message(c4, sk, params)
@@ -248,7 +311,98 @@ def drive_main_path(torch, np, params, dev, common) -> dict:
           f"{mul_launches}; kernel he_mul == plain he_mul", flush=True)
     return {"launches": launches, "he_mul_launches": mul_launches,
             "err_mul": err_mul, "err_sum": err_sum, "path_s": path_s,
-            "operands": (c1, c2, evk)}
+            "operands": (c1, c2, evk), "pk": pk}
+
+
+def drive_batched_step(torch, np, params, dev, common, pk, evk) -> dict:
+    """Phase 4: the batched step on three rungs of the paper's ladder, the
+    main path of this slice."""
+    from repro_torch.core import bigint
+    from repro_torch.core import heaan as H
+    from repro_torch.core.context import make_context
+    from repro_torch.dist import he_pipeline as hp
+
+    qlimbs = params.qlimbs(params.logQ)
+    rng = np.random.default_rng(8)
+
+    def encrypt(seed):
+        # a random plaintext below Q, encrypted from a seed (encode's
+        # host-side big-integer work would only cost time here)
+        pt = torch.from_numpy(rng.integers(
+            0, 1 << 32, size=(params.N, qlimbs), dtype=np.uint64
+        ).astype(np.uint32).view(np.int32)).to(dev)
+        return H.encrypt_coeffs(bigint.mask_bits(pt, params.logQ), pk,
+                                params, params.N // 2, seed)
+
+    cts = [encrypt(100 + i) for i in range(2 * BATCH)]
+    refs = [H.he_mul(cts[2 * i], cts[2 * i + 1], evk, params)
+            for i in range(BATCH)]
+    st = hp.he_static(params, params.logQ)
+    tabs = hp.runtime_tables(make_context(params, params.logQ, dev), evk)
+
+    def args(B):
+        return [torch.stack([getattr(c, f) for c in cts[s:2 * B:2]])
+                for s, f in ((0, "ax"), (0, "bx"), (1, "ax"), (1, "bx"))]
+
+    def check(out, B, what):
+        for i in range(B):
+            require(torch.equal(out[0][i], refs[i].ax)
+                    and torch.equal(out[1][i], refs[i].bx),
+                    f"batched step {what}: pair {i} differs from he_mul")
+
+    steps = {name: hp.make_he_mul_step(st, dev, use_kernels=True, **kw)
+             for name, (kw, _) in RUNGS.items()}
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    outs, rung_launches = {}, {}
+    for name, step in steps.items():
+        before = dict(common.LAUNCHES)
+        outs[name] = step(*tabs, *args(BATCH))
+        torch.cuda.synchronize()
+        rung_launches[name] = {k: v - before[k] for k, v in
+                               common.LAUNCHES.items() if v - before[k]}
+    out3 = steps["default"](*tabs, *args(3))
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel never launched in the batched step: {launches}")
+    for name, (_, want) in RUNGS.items():
+        require(rung_launches[name] == want,
+                f"rung {name} launched {rung_launches[name]}, expected "
+                f"{want}")
+        check(outs[name], BATCH, name)
+    check(out3, 3, "default at B=3")
+    plain = hp.make_he_mul_step(st, dev, crt_strategy="acc3",
+                                icrt_strategy="acc3")(*tabs, *args(BATCH))
+    require(torch.equal(plain[0], outs["default"][0])
+            and torch.equal(plain[1], outs["default"][1]),
+            "batched step through the kernels differs from the plain step")
+
+    times = {}
+    for name, step in steps.items():
+        step(*tabs, *args(BATCH))                 # warm-up
+        ms = []
+        for _ in range(5):
+            a = args(BATCH)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step(*tabs, *a)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        med = statistics.median(ms)
+        times[name] = {"ms_per_step": med, "ms_per_he_mul": med / BATCH,
+                       "ms": ms}
+        print(f"batched step {name:14s} B={BATCH}: {med:.2f} ms per step, "
+              f"{med / BATCH:.2f} ms per HE Mul; == he_mul per pair; "
+              f"launches {rung_launches[name]}", flush=True)
+    print(f"batched step ok in {path_s:.2f} s: launches {launches}; B=3 ok; "
+          f"default rung == plain batched step", flush=True)
+    return {"launches": launches, "rung_launches": rung_launches,
+            "path_s": path_s, "times": times,
+            "profile_step": lambda: steps["default"](*tabs, *args(BATCH))}
 
 
 def time_he_mul(torch, params, operands, reps: int, use_kernels: bool
@@ -268,18 +422,16 @@ def time_he_mul(torch, params, operands, reps: int, use_kernels: bool
     return times
 
 
-def profile_he_mul(torch, params, operands) -> dict:
-    """Device time by kernel name over one HE Mul, the busy share, and the
-    device time of the port's kernels against PyTorch's own."""
+def profile(torch, fn) -> dict:
+    """Device time by kernel name over one call of fn, the busy share, and
+    the device time of the port's kernels against PyTorch's own."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import heaan as H
-    c1, c2, evk = operands
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        H.he_mul(c1, c2, evk, params)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
@@ -308,6 +460,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     import numpy as np
+    from repro_torch.core import heaan as H
     from repro_torch.core.params import paper_params
     from repro_torch.kernels import common
 
@@ -334,6 +487,9 @@ def main() -> int:
 
     per_kernel = check_kernels(torch, np, params, dev, flush)
     path = drive_main_path(torch, np, params, dev, common)
+    c1, c2, evk = path["operands"]
+    batched = drive_batched_step(torch, np, params, dev, common, path["pk"],
+                                 evk)
     mul_ms = time_he_mul(torch, params, path["operands"], 5, True)
     plain_ms = time_he_mul(torch, params, path["operands"], 2, False)
     per_he_mul = {key: sum(n * r[key] for k, counts in
@@ -343,18 +499,26 @@ def main() -> int:
 
     kernels = []
     for name, rows in per_kernel.items():
-        main_row = rows[0]                       # region-1 shape
+        # the headline shape: region 1 of HE Mul (B = 1); a variant runs
+        # only in the batched step, so its first B = BATCH shape
+        main_row = next(r for r in rows if r["batch"] == (
+            1 if path["launches"][name] else BATCH))
         src, tpu = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/{src}", "replaces": tpu,
-            "launches": path["launches"][name],
-            "he_mul_launches": path["he_mul_launches"][name],
+            # on both main paths: phase 3 (one HE Mul and its neighbours)
+            # and phase 4 (the batched step's rungs)
+            "launches": path["launches"][name] + batched["launches"][name],
+            "main_path_launches": path["launches"][name],
+            "batched_step_launches": batched["launches"][name],
+            "he_mul_launches": path["he_mul_launches"].get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "bitwise": True, "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"], "library_ms": None,
+            "headline_shape": main_row["shape"],
             "bytes": main_row["bytes"], "shapes": rows})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"he_mul": {
@@ -364,8 +528,15 @@ def main() -> int:
         "kernel_bound_ms_sum": per_he_mul["bound_ms"],
         "main_path_s": path["path_s"], "err_mul": path["err_mul"],
         "err_sum": path["err_sum"], "card": card}}))
-    print(json.dumps({"he_mul_profile": profile_he_mul(
-        torch, params, path["operands"])}))
+    print(json.dumps({"batched_step": {
+        "params": "paper_params(): logN=16 logQ=1200 beta=2^32",
+        "batch": BATCH, "rungs": batched["times"],
+        "rung_launches": batched["rung_launches"],
+        "path_s": batched["path_s"], "card": card}}))
+    print(json.dumps({"he_mul_profile": profile(
+        torch, lambda: H.he_mul(c1, c2, evk, params))}))
+    print(json.dumps({"batched_step_profile": profile(
+        torch, batched["profile_step"])}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,27 @@
 """CRT (paper Algo 1) and iCRT (Algo 5 → reordered Algo 6), plain torch.
 
-These are the plain versions of the CRT and iCRT kernels
-(:mod:`repro_torch.kernels.crt`, :mod:`repro_torch.kernels.icrt`), in the
-formulation the kernels use: products are summed into a three-word
-accumulator with one reduction at the end (paper Table VIII "GPU-C"), and
-the iCRT limbs are column sums with a running carry. int32 words in and
-out, int64 inside; every result is exact.
+CRT strategies (the JAX package's, paper Table VIII ladder):
+  - "shoup"  : per-term Shoup modmul, modulo every iteration.
+  - "mod2"/"mod4" : raw wide products summed, remainder every 2/4 terms.
+               Four products of < 2^62 can pass 2^63, so the sum is kept
+               as two words (hi, lo) and reduced from them.
+  - "acc3"   : three-word accumulation, one Shoup fold by {1, β, β²} at
+               the end (GPU-C). The CRT kernel's default; its plain version.
+  - "matmul" : the stage-1 sum on 16-bit input halves. CUDA torch has no
+               int64 matrix product, so it is a loop over K of elementwise
+               products, on either device.
+
+iCRT strategies ("matmul", "acc3", "naive" as in the JAX package; the
+accumulator sum over the primes differs, the result does not):
+  - "matmul" : Algo 6 on 16-bit halves of P/p_j, summed column by column.
+  - "acc3"   : Algo 6 with per-(n, k) three-word accumulators.
+  - "naive"  : Algo 5, a word × BigInt product and BigInt add per prime.
+The iCRT kernel's own formulation, column sums with a running carry, is
+not a strategy: its plain version (kernels/icrt/ref.py) reaches it through
+``_icrt(..., _accum_columns)``.
+
+int32 words in and out, int64 inside; every strategy is exact, so all give
+the same words.
 """
 
 from __future__ import annotations
@@ -14,7 +30,7 @@ import torch
 
 from repro_torch.core import bigint
 from repro_torch.core.wordops import (
-    M32, cond_reduce, narrow, shoup_modmul, wide,
+    M32, acc3_add_product, cond_reduce, modadd, narrow, shoup_modmul, wide,
 )
 
 __all__ = ["crt", "icrt", "finalize_accum"]
@@ -25,27 +41,57 @@ __all__ = ["crt", "icrt", "finalize_accum"]
 # --------------------------------------------------------------------------
 
 def crt(x: torch.Tensor, tb: torch.Tensor, tb_shoup: torch.Tensor,
-        primes: torch.Tensor) -> torch.Tensor:
+        primes: torch.Tensor, *, strategy: str = "matmul") -> torch.Tensor:
     """mod(Σ_k x[n,k]·β^k, p_j) for every coefficient n and prime j.
 
     x: (N, K) limbs; tb/tb_shoup: (np, Kt) = β^k mod p_j with
-    Kt ≥ max(K, 3) (the fold reads k < 3); primes: (np,). Returns (np, N).
+    Kt ≥ max(K, 3) (the acc3 fold reads k < 3); primes: (np,).
+    Returns (np, N).
     """
     N, K = x.shape
     if tb.shape[1] < max(K, 3):
         raise ValueError(f"CRT table has {tb.shape[1]} columns; "
                          f"needs {max(K, 3)}")
-    xw, t = wide(x), wide(tb)
-    lo = torch.zeros((t.shape[0], N), dtype=torch.int64, device=x.device)
-    hi = torch.zeros_like(lo)
-    for k in range(K):
-        prod = xw[None, :, k] * t[:, k, None]          # < 2^62
-        lo += prod & M32
-        hi += prod >> 32
-    # the sum as three words a0 + a1·β + a2·β²
-    mid = hi + (lo >> 32)
-    return narrow(_fold3(lo & M32, mid & M32, mid >> 32, t, wide(tb_shoup),
-                         wide(primes)))
+    xw, t, p = wide(x), wide(tb), wide(primes)[:, None]
+    zeros = torch.zeros((t.shape[0], N), dtype=torch.int64, device=x.device)
+
+    if strategy == "matmul":
+        s_lo, s_hi = zeros, zeros.clone()
+        for k in range(K):
+            s_lo += t[:, k, None] * (xw[None, :, k] & 0xFFFF)   # < K·2^46
+            s_hi += t[:, k, None] * (xw[None, :, k] >> 16)
+        return narrow((s_lo + ((s_hi % p) << 16)) % p)
+
+    if strategy == "shoup":
+        acc, tsh = zeros, wide(tb_shoup)
+        for k in range(K):
+            acc = modadd(acc, shoup_modmul(xw[None, :, k], t[:, k, None],
+                                           tsh[:, k, None], p), p)
+        return narrow(acc)
+
+    if strategy in ("mod2", "mod4"):
+        every = int(strategy[3:])
+        lo, hi = zeros, zeros.clone()       # the sum is hi·2^32 + lo
+        for k in range(K):
+            prod = t[:, k, None] * xw[None, :, k]          # < 2^62
+            lo = lo + (prod & M32)
+            hi = hi + (prod >> 32)
+            if (k + 1) % every == 0:
+                lo, hi = (((hi % p) << 32) + lo) % p, zeros
+        return narrow((((hi % p) << 32) + lo) % p)
+
+    if strategy == "acc3":
+        lo, hi = zeros, zeros.clone()
+        for k in range(K):
+            prod = xw[None, :, k] * t[:, k, None]          # < 2^62
+            lo += prod & M32
+            hi += prod >> 32
+        # the sum as three words a0 + a1·β + a2·β²
+        mid = hi + (lo >> 32)
+        return narrow(_fold3(lo & M32, mid & M32, mid >> 32, t,
+                             wide(tb_shoup), wide(primes)))
+
+    raise ValueError(f"unknown CRT strategy {strategy!r}")
 
 
 def _fold3(a0, a1, a2, tb, tb_shoup, primes):
@@ -64,23 +110,89 @@ def _fold3(a0, a1, a2, tb, tb_shoup, primes):
 def icrt(r: torch.Tensor, primes: torch.Tensor, inv_P: torch.Tensor,
          inv_P_shoup: torch.Tensor, pdivp: torch.Tensor,
          P_limbs: torch.Tensor, P_half: torch.Tensor,
-         p_inv_f64: torch.Tensor, out_limbs: int) -> torch.Tensor:
-    """Reconstruct centered BigInts from RNS residues (paper Algo 6).
+         p_inv_f64: torch.Tensor, out_limbs: int, *,
+         strategy: str = "matmul") -> torch.Tensor:
+    """Reconstruct centered BigInts from RNS residues (paper Algo 5/6).
 
     r: (np, N). Returns (N, out_limbs) two's-complement (low limbs of the
     centered value — callers mask to mod-q or shift for key-switching).
     The accumulator is as wide as P_limbs.
     """
+    if strategy not in _ACCUM:
+        raise ValueError(f"unknown iCRT strategy {strategy!r}")
+    return _icrt(r, primes, inv_P, inv_P_shoup, pdivp, P_limbs, P_half,
+                 p_inv_f64, out_limbs, _ACCUM[strategy])
+
+
+def _icrt(r, primes, inv_P, inv_P_shoup, pdivp, P_limbs, P_half, p_inv_f64,
+          out_limbs: int, accumulate) -> torch.Tensor:
+    """:func:`icrt` with the accumulator sum `accumulate`."""
     p = wide(primes)[:, None]
     # (1) Hadamard: temp[j,n] = mod(r[j,n]·(P/p_j)⁻¹, p_j)   [Shoup]
     temp = shoup_modmul(wide(r), wide(inv_P)[:, None],
                         wide(inv_P_shoup)[:, None], p)
     # (2) accum[n] = Σ_j temp[j,n]·(P/p_j)
-    accum = _accum_columns(temp, wide(pdivp), P_limbs.shape[0])
+    accum = accumulate(temp, wide(pdivp), P_limbs.shape[0])
     # (3) mod P via the float quotient: accum/P = Σ_j temp_j/p_j exactly;
     # the f64 error is ≪ 1, so ±1 corrections make it exact.
     s = torch.floor((temp.double() * p_inv_f64[:, None]).sum(0)).long()
     return finalize_accum(accum, s, P_limbs, P_half, out_limbs)
+
+
+def _carry_columns(cols: torch.Tensor) -> torch.Tensor:
+    """(N, A) column sums (int64, < 2^62) -> (N, A) limbs, carried up."""
+    out = torch.empty_like(cols)
+    carry = torch.zeros(cols.shape[0], dtype=torch.int64, device=cols.device)
+    for k in range(cols.shape[1]):
+        v = cols[:, k] + carry
+        out[:, k] = v & M32
+        carry = v >> 32
+    return out
+
+
+def _accum_matmul(temp: torch.Tensor, pdivp: torch.Tensor,
+                  accum_limbs: int) -> torch.Tensor:
+    """Loop-reordered Algo 6 on 16-bit halves of the P/p_j limbs."""
+    N, PL = temp.shape[1], pdivp.shape[1]
+    s_lo = torch.zeros((N, PL), dtype=torch.int64, device=temp.device)
+    s_hi = torch.zeros_like(s_lo)
+    for j in range(temp.shape[0]):                     # sums < np·2^46
+        s_lo += temp[j][:, None] * (pdivp[j] & 0xFFFF)
+        s_hi += temp[j][:, None] * (pdivp[j] >> 16)
+    # value_k = s_lo + s_hi·2^16 contributes to limbs k and k+1
+    cols = torch.zeros((N, accum_limbs), dtype=torch.int64,
+                       device=temp.device)
+    cols[:, :PL] += (s_lo & M32) + ((s_hi & 0xFFFF) << 16)
+    cols[:, 1: PL + 1] += (s_lo >> 32) + (s_hi >> 16)
+    return _carry_columns(cols)
+
+
+def _accum_acc3(temp: torch.Tensor, pdivp: torch.Tensor,
+                accum_limbs: int) -> torch.Tensor:
+    """Algo 6 with per-(n, k) three-word accumulators (GPU-C flavour)."""
+    N, PL = temp.shape[1], pdivp.shape[1]
+    a2 = a1 = a0 = torch.zeros((N, PL), dtype=torch.int64,
+                               device=temp.device)
+    for j in range(temp.shape[0]):
+        a2, a1, a0 = acc3_add_product(a2, a1, a0, temp[j][:, None],
+                                      pdivp[j][None, :])
+    # assemble Σ_k (a0 + a1β + a2β²)_k · β^k with three shifted adds
+    acc = _placed(a0, 0, accum_limbs)
+    acc = bigint.add(acc, _placed(a1, 1, accum_limbs))
+    return bigint.add(acc, _placed(a2, 2, accum_limbs))
+
+
+def _accum_naive(temp: torch.Tensor, pdivp: torch.Tensor,
+                 accum_limbs: int) -> torch.Tensor:
+    """Paper Algo 5: a word × BigInt product and a BigInt add per prime
+    (N-parallel only; the slow baseline)."""
+    N, PL = temp.shape[1], pdivp.shape[1]
+    acc = torch.zeros((N, accum_limbs), dtype=torch.int64,
+                      device=temp.device)
+    for j in range(temp.shape[0]):
+        row = _placed(pdivp[j].expand(N, PL), 0, accum_limbs)
+        acc = bigint.add(acc, bigint.mul_word(row, temp[j]))
+    return acc
 
 
 def _accum_columns(temp: torch.Tensor, pdivp: torch.Tensor,
@@ -90,26 +202,36 @@ def _accum_columns(temp: torch.Tensor, pdivp: torch.Tensor,
     Column k holds Σ_j temp_j·pdivp[j, k] = lo_k + hi_k·β; limb k of the
     sum is lo_k + hi_(k-1) plus the running carry.
     """
-    npn, N = temp.shape
-    PL = pdivp.shape[1]
+    N, PL = temp.shape[1], pdivp.shape[1]
     lo = torch.zeros((N, PL), dtype=torch.int64, device=temp.device)
     hi = torch.zeros_like(lo)
-    for j in range(npn):
+    for j in range(temp.shape[0]):
         prod = temp[j][:, None] * pdivp[j][None, :]    # < 2^62
         lo += prod & M32
         hi += prod >> 32
-    out = torch.empty((N, accum_limbs), dtype=torch.int64,
-                      device=temp.device)
-    carry = torch.zeros(N, dtype=torch.int64, device=temp.device)
-    for k in range(accum_limbs):
-        v = carry
-        if k < PL:
-            v = v + lo[:, k]
-        if 1 <= k <= PL:
-            v = v + hi[:, k - 1]
-        out[:, k] = v & M32
-        carry = v >> 32
+    cols = torch.zeros((N, accum_limbs), dtype=torch.int64,
+                       device=temp.device)
+    cols[:, :PL] += lo
+    cols[:, 1: PL + 1] += hi
+    return _carry_columns(cols)
+
+
+def _placed(words: torch.Tensor, offset: int, accum_limbs: int
+            ) -> torch.Tensor:
+    """(N, PL) words -> (N, accum_limbs) BigInt shifted by `offset` limbs.
+
+    Words beyond the accumulator width are provably zero and are dropped.
+    """
+    N, PL = words.shape
+    keep = min(PL, accum_limbs - offset)
+    out = torch.zeros((N, accum_limbs), dtype=words.dtype,
+                      device=words.device)
+    out[:, offset: offset + keep] = words[:, :keep]
     return out
+
+
+_ACCUM = {"matmul": _accum_matmul, "acc3": _accum_acc3,
+          "naive": _accum_naive}
 
 
 def finalize_accum(accum, s, P_limbs, P_half, out_limbs: int):

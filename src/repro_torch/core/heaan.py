@@ -162,10 +162,12 @@ def he_mul(c1: Ciphertext, c2: Ciphertext, evk: EvalKey, params: HEParams,
     ks_limbs = params.limbs_for_bits(logq + params.logQ) + 1
     e2 = rns.to_eval(d2, np2, g, cfg)
     ks_ax = rns.from_eval(
-        rns.eval_mul_shoup(e2, evk.ax_ev[:np2], evk.ax_ev_shoup[:np2], g),
+        rns.eval_mul_shoup(e2, evk.ax_ev[:np2], evk.ax_ev_shoup[:np2], g,
+                           cfg),
         params, ks_limbs, g, cfg)
     ks_bx = rns.from_eval(
-        rns.eval_mul_shoup(e2, evk.bx_ev[:np2], evk.bx_ev_shoup[:np2], g),
+        rns.eval_mul_shoup(e2, evk.bx_ev[:np2], evk.bx_ev_shoup[:np2], g,
+                           cfg),
         params, ks_limbs, g, cfg)
     ks_ax = bigint.shift_right_round(ks_ax, params.logQ, out_limbs=qlimbs)
     ks_bx = bigint.shift_right_round(ks_bx, params.logQ, out_limbs=qlimbs)

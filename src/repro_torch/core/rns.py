@@ -3,11 +3,20 @@
     limbs --CRT--> residues --NTT--> eval domain
     eval  --iNTT--> residues --iCRT--> centered limbs
 
-With ``PipelineConfig(use_kernels=True)`` (the default) each stage goes
-through its wrapper in :mod:`repro_torch.kernels`, which launches the CUDA
-kernel for a CUDA tensor and runs the plain version for a CPU tensor.
-``use_kernels=False`` runs the plain versions on any device; it is how a
-run on the card is compared with the plain path.
+Strategy flags select the paper's optimization ladder (see core.crt and
+core.ntt), routed as the JAX package routes them:
+
+  - ``use_kernels=True`` (the port's default): CRT, NTT, iNTT, iCRT and
+    the Montgomery product go through their wrappers in
+    :mod:`repro_torch.kernels` with the kernels' defaults (acc3 CRT,
+    unmodified Shoup), whatever the strategy fields say. A wrapper
+    launches the CUDA kernel for a CUDA tensor and runs its plain version
+    for a CPU tensor.
+  - ``use_kernels=False``: the plain torch stages on any device, honouring
+    ``crt_strategy``, ``icrt_strategy`` and ``modified_shoup``. It is how a
+    run on the card is compared with the plain path.
+  - The evk Shoup product (:func:`eval_mul_shoup`) is plain torch on
+    either path and honours ``modified_shoup``.
 
 Tables come from the device caches of :mod:`repro_torch.core.context`;
 words are int32 bit patterns throughout.
@@ -21,17 +30,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.context import GlobalTables, device_icrt_tables
-from repro_torch.core.ntt import pointwise_shoup_scale
+from repro_torch.core.crt import crt, icrt
+from repro_torch.core.ntt import intt, ntt, pointwise_shoup_scale
 from repro_torch.core.params import HEParams
 from repro_torch.core.wordops import M32, modadd, modsub, narrow, wide
 from repro_torch.kernels.crt.ops import crt_op
-from repro_torch.kernels.crt.ref import crt_ref
 from repro_torch.kernels.icrt.ops import icrt_op
-from repro_torch.kernels.icrt.ref import icrt_ref
+from repro_torch.kernels.icrt.ref import icrt_inputs
 from repro_torch.kernels.modmul.ops import pointwise_mont_op
 from repro_torch.kernels.modmul.ref import pointwise_mont_ref
 from repro_torch.kernels.ntt.ops import intt_op, ntt_op
-from repro_torch.kernels.ntt.ref import intt_ref, ntt_ref
 from repro_torch.nt.residue import limbs_to_int
 
 __all__ = ["PipelineConfig", "DEFAULT", "to_eval", "to_eval_small",
@@ -41,8 +49,12 @@ __all__ = ["PipelineConfig", "DEFAULT", "to_eval", "to_eval_small",
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """use_kernels: route the stages through the kernel wrappers."""
-    use_kernels: bool = True
+    """Paper optimization toggles (§V), as in the JAX package; only the
+    default of use_kernels differs (the port runs on its kernels)."""
+    crt_strategy: str = "matmul"      # matmul | shoup | mod2 | mod4 | acc3
+    icrt_strategy: str = "matmul"     # matmul | acc3 | naive
+    modified_shoup: bool = False      # paper's 3-half-mul Shoup variant
+    use_kernels: bool = True          # route stages through the kernels
 
 
 DEFAULT = PipelineConfig()
@@ -55,9 +67,11 @@ def to_eval(x: torch.Tensor, npn: int, g: GlobalTables,
     tb = g.crt_tb[:npn, :cols].contiguous()
     tb_sh = g.crt_tb_shoup[:npn, :cols].contiguous()
     primes = g.primes[:npn]
-    crt, ntt = (crt_op, ntt_op) if cfg.use_kernels else (crt_ref, ntt_ref)
-    res = crt(x, tb, tb_sh, primes)
-    return ntt(res, g.psi_rev[:npn], g.psi_rev_shoup[:npn], primes)
+    psi = (g.psi_rev[:npn], g.psi_rev_shoup[:npn], primes)
+    if cfg.use_kernels:
+        return ntt_op(crt_op(x, tb, tb_sh, primes), *psi)
+    res = crt(x, tb, tb_sh, primes, strategy=cfg.crt_strategy)
+    return ntt(res, *psi, modified=cfg.modified_shoup)
 
 
 def to_eval_small(s: torch.Tensor, npn: int, g: GlobalTables,
@@ -67,8 +81,10 @@ def to_eval_small(s: torch.Tensor, npn: int, g: GlobalTables,
     s64 = s.long()[None, :]
     res = torch.where(s64 >= 0, s64 % p, p - ((-s64) % p))
     res = narrow(torch.where(res == p, 0, res))
-    ntt = ntt_op if cfg.use_kernels else ntt_ref
-    return ntt(res, g.psi_rev[:npn], g.psi_rev_shoup[:npn], g.primes[:npn])
+    psi = (g.psi_rev[:npn], g.psi_rev_shoup[:npn], g.primes[:npn])
+    if cfg.use_kernels:
+        return ntt_op(res, *psi)
+    return ntt(res, *psi, modified=cfg.modified_shoup)
 
 
 def from_eval(ev: torch.Tensor, params: HEParams, out_limbs: int,
@@ -76,11 +92,14 @@ def from_eval(ev: torch.Tensor, params: HEParams, out_limbs: int,
     """(npn, N) eval residues -> (N, out_limbs) centered two's complement."""
     npn = ev.shape[0]
     tabs = device_icrt_tables(params, npn, ev.device)
-    intt, icrt = (intt_op, icrt_op) if cfg.use_kernels else (intt_ref,
-                                                               icrt_ref)
-    res = intt(ev, g.ipsi_rev[:npn], g.ipsi_rev_shoup[:npn], g.n_inv[:npn],
-               g.n_inv_shoup[:npn], g.primes[:npn])
-    return icrt(res, tabs, g, out_limbs)
+    ipsi = (g.ipsi_rev[:npn], g.ipsi_rev_shoup[:npn], g.n_inv[:npn],
+            g.n_inv_shoup[:npn], g.primes[:npn])
+    if cfg.use_kernels:
+        return icrt_op(intt_op(ev, *ipsi), icrt_inputs(tabs, g), out_limbs)
+    res = intt(ev, *ipsi, modified=cfg.modified_shoup)
+    return icrt(res, g.primes[:npn], tabs.inv_P, tabs.inv_P_shoup,
+                tabs.pdivp, tabs.P_limbs, tabs.P_half_limbs,
+                g.p_inv_f64[:npn], out_limbs, strategy=cfg.icrt_strategy)
 
 
 def eval_mul(a: torch.Tensor, b: torch.Tensor, g: GlobalTables,
@@ -92,9 +111,11 @@ def eval_mul(a: torch.Tensor, b: torch.Tensor, g: GlobalTables,
 
 
 def eval_mul_shoup(a: torch.Tensor, b: torch.Tensor, b_shoup: torch.Tensor,
-                   g: GlobalTables) -> torch.Tensor:
+                   g: GlobalTables, cfg: PipelineConfig = DEFAULT
+                   ) -> torch.Tensor:
     """Pointwise a⊙b mod p where b has precomputed Shoup companions (evk)."""
-    return pointwise_shoup_scale(a, b, b_shoup, g.primes[:a.shape[0]])
+    return pointwise_shoup_scale(a, b, b_shoup, g.primes[:a.shape[0]],
+                                 modified=cfg.modified_shoup)
 
 
 def eval_add(a, b, g: GlobalTables):

@@ -23,8 +23,9 @@ from typing import Tuple
 import torch
 
 __all__ = [
-    "M32", "wide", "narrow", "mul_wide", "modadd", "modsub", "cond_reduce",
-    "shoup_modmul", "mont_redc", "mont_modmul", "acc3_add_product",
+    "M32", "wide", "narrow", "mul_wide", "mulhi_approx3", "modadd",
+    "modsub", "cond_reduce", "shoup_modmul", "shoup_modmul_modified",
+    "mont_redc", "mont_modmul", "acc3_add_product",
 ]
 
 M32 = 0xFFFFFFFF
@@ -49,6 +50,22 @@ def mul_wide(a: torch.Tensor, b: torch.Tensor
     """Full 32×32→64 product of words as (hi, lo)."""
     prod = a * b                        # wraps mod 2^64: low bits exact
     return (prod >> 32) & M32, prod & M32
+
+
+def mulhi_approx3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Approximate high word of a·b from THREE 16×16 products (the paper's
+    modified Shoup, §V-B).
+
+    The lo·lo product, which only feeds a carry, is dropped, so the result
+    underestimates the true high word by at most 2. Each partial product
+    and sum stays below 2^32, as in the u32 reference; the result is
+    masked to 32 bits.
+    """
+    al, ah = a & 0xFFFF, a >> 16
+    bl, bh = b & 0xFFFF, b >> 16
+    lh = al * bh
+    mid2 = ah * bl + (lh & 0xFFFF)
+    return (ah * bh + (lh >> 16) + (mid2 >> 16)) & M32
 
 
 def modadd(a, b, p):
@@ -81,6 +98,16 @@ def shoup_modmul(x, y, y_shoup, p):
     """mod(x·y, p) with y_shoup = floor(y·β/p), p < β/4 (paper Algo 2)."""
     qu = mul_wide(x, y_shoup)[0]
     r = (x * y - qu * p) & M32          # true value < 2p
+    return torch.where(r >= p, r - p, r)
+
+
+def shoup_modmul_modified(x, y, y_shoup, p):
+    """Paper's modified Shoup: the quotient from :func:`mulhi_approx3`
+    leaves r in [0, 4p), brought into [0, p) by two conditional
+    subtractions (needs p < β/4)."""
+    qu = mulhi_approx3(x, y_shoup)
+    r = (x * y - qu * p) & M32          # true value < 4p
+    r = torch.where(r >= 2 * p, r - 2 * p, r)
     return torch.where(r >= p, r - p, r)
 
 

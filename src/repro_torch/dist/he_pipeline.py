@@ -1,0 +1,378 @@
+"""The paper's Fig. 2 two-region HE Mul over a batch, as one step.
+
+This is `core.heaan.he_mul` restructured for a batch of ciphertext pairs
+(the unit a serving system schedules), the one-device counterpart of the
+JAX package's ``dist/he_pipeline.py``:
+
+  - operands are (B, N, qlimbs) limb batches, outputs likewise;
+  - every table is passed as an argument (dicts of tensors from
+    :func:`runtime_tables`), so one step serves any batch;
+  - the strategy keywords select the paper's optimization ladder per stage
+    (CRT strategy, iCRT strategy, modified Shoup), with the reference's
+    names and defaults; ``use_kernels=True`` routes CRT, NTT, iNTT, iCRT
+    and the Montgomery product through the CUDA kernels
+    (:mod:`repro_torch.kernels`), whose CRT strategies are acc3, mod2 and
+    mod4 and whose transforms honour ``modified_shoup``.
+
+Bitwise contract: the step runs the same stages as `core.heaan.he_mul` in
+the same order, and every stage is exact, so each output equals he_mul on
+that pair bit for bit, whatever the strategies.
+
+The batched stage wrappers are factored into a :class:`StageFns` bundle
+(:func:`make_stage_fns`) plus a region-2 key-switch factory
+(:func:`make_keyswitch_step`), as in the reference, so that rotations and
+serving can reuse them.
+
+Differences from the reference:
+
+  - No mesh. :func:`make_stage_fns` and :func:`make_he_mul_step` take a
+    ``device`` in place of ``mesh`` (default ``"cuda"``, through
+    ``resolve_device``), and the step refuses operands elsewhere;
+    make_stage_fns needs no HEStatic. The
+    ``ev``/``out``/``limbs`` placements are dropped: they are
+    ``with_sharding_constraint`` hints and carry no arithmetic.
+  - Left out: ``reduce_scatter_icrt``, ``stage_timer``, ``he_table_specs``
+    and ``he_input_specs``. They serve a mesh, the JAX package's observability or the
+    dry-run lowering.
+  - No ``quot_fix`` in :func:`region_tables`: the port's iCRT kernel takes
+    its quotient from f64 (``p_inv_f64``); ``quot_fix`` is the TPU
+    kernel's fixed-point stand-in. :class:`HEStatic` holds no iCRT tables:
+    the accumulator width is read from the region table's ``P_limbs``.
+  - With kernels, ``_icrt_b`` launches the iCRT kernel on the (np, B·N)
+    fold; that launch includes ``finalize_accum``, which the reference
+    calls after ``icrt_accum_pallas``.
+  - Twiddles by row index: with kernels, ``_ntt_b``/``_intt_b`` hand the
+    kernel (B·np, N) rows and the (np, N) tables, and row r takes twiddle
+    row r mod np, where the reference tiles the tables B times.
+    ``_mont_mul_b`` hands the kernel (B·np, N) rows with the three
+    per-prime constants repeated B times, where the reference folds the
+    batch into the coefficient axis. The products are the same.
+  - Plain paths: ``vmap`` becomes a batch dimension (NTT, iNTT, the
+    pointwise products) or a Python loop over B (iCRT).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from repro_torch.core import bigint
+from repro_torch.core.cipher import EvalKey
+from repro_torch.core.context import HEContext, resolve_device
+from repro_torch.core.crt import crt, icrt
+from repro_torch.core.ntt import intt, ntt, pointwise_shoup_scale
+from repro_torch.core.params import HEParams
+from repro_torch.core.wordops import modadd, modsub, mont_modmul, narrow, wide
+from repro_torch.kernels.crt.ops import crt_op
+from repro_torch.kernels.icrt.ops import icrt_op
+from repro_torch.kernels.modmul.ops import pointwise_mont_op
+from repro_torch.kernels.ntt.ops import intt_op, ntt_op
+
+__all__ = [
+    "HEStatic", "he_static", "region_tables", "evk_tables",
+    "runtime_tables", "StageFns", "make_stage_fns", "make_keyswitch_step",
+    "make_he_mul_step",
+]
+
+# Keys of a region-table dict, in the order region_tables emits them (the
+# reference's, without quot_fix).
+REGION_TABLE_KEYS = (
+    "primes", "psi_rev", "psi_rev_shoup", "ipsi_rev", "ipsi_rev_shoup",
+    "n_inv", "n_inv_shoup", "pprime", "r2", "crt_tb", "crt_tb_shoup",
+    "inv_P", "inv_P_shoup", "pdivp", "P_limbs", "P_half_limbs", "p_inv_f64",
+)
+
+EVK_TABLE_KEYS = ("ax_ev", "ax_ev_shoup", "bx_ev", "bx_ev_shoup")
+
+# CRT strategies the kernel has; the others run as acc3 on the kernel path,
+# as the reference's _crt_b does
+_KERNEL_CRT = ("acc3", "mod2", "mod4")
+
+
+@dataclasses.dataclass(frozen=True)
+class HEStatic:
+    """Everything shape-static about one HE-Mul level: prime counts and
+    limb widths."""
+
+    params: HEParams
+    logq: int
+    qlimbs: int
+    np1: int
+    np2: int
+    np2_max: int          # rows of the stored evk (region 2 at logQ)
+    ks_limbs: int         # key-switch product width before ÷Q
+
+    @property
+    def N(self) -> int:
+        return self.params.N
+
+
+def he_static(params: HEParams, logq: int) -> HEStatic:
+    """Static shape metadata for an HE Mul at modulus 2^logq."""
+    return HEStatic(
+        params=params,
+        logq=logq,
+        qlimbs=params.qlimbs(logq),
+        np1=params.np_region1(logq),
+        np2=params.np_region2(logq),
+        np2_max=params.np_region2(params.logQ),
+        ks_limbs=params.limbs_for_bits(logq + params.logQ) + 1,
+    )
+
+
+# --------------------------------------------------------------------------
+# table dicts
+# --------------------------------------------------------------------------
+
+def region_tables(ctx: HEContext, region: int) -> Dict[str, torch.Tensor]:
+    """All tables one region's CRT→NTT→iNTT→iCRT chain consumes, as a flat
+    dict of contiguous tensors on ``ctx.device``."""
+    if region not in (1, 2):
+        raise ValueError(f"region must be 1 or 2, got {region}")
+    g = ctx.tables
+    npn = ctx.np1 if region == 1 else ctx.np2
+    tabs = ctx.icrt1 if region == 1 else ctx.icrt2
+    K = ctx.qlimbs
+    return {
+        "primes": g.primes[:npn],
+        "psi_rev": g.psi_rev[:npn],
+        "psi_rev_shoup": g.psi_rev_shoup[:npn],
+        "ipsi_rev": g.ipsi_rev[:npn],
+        "ipsi_rev_shoup": g.ipsi_rev_shoup[:npn],
+        "n_inv": g.n_inv[:npn],
+        "n_inv_shoup": g.n_inv_shoup[:npn],
+        "pprime": g.pprime[:npn],
+        "r2": g.r2[:npn],
+        "crt_tb": g.crt_tb[:npn, :K].contiguous(),
+        "crt_tb_shoup": g.crt_tb_shoup[:npn, :K].contiguous(),
+        "inv_P": tabs.inv_P,
+        "inv_P_shoup": tabs.inv_P_shoup,
+        "pdivp": tabs.pdivp,
+        "P_limbs": tabs.P_limbs,
+        "P_half_limbs": tabs.P_half_limbs,
+        "p_inv_f64": g.p_inv_f64[:npn],
+    }
+
+
+def evk_tables(evk: EvalKey) -> Dict[str, torch.Tensor]:
+    """The evaluation key as a flat dict (already eval-domain + Shoup; the
+    step slices rows [:np2] for the current level)."""
+    return {k: getattr(evk, k) for k in EVK_TABLE_KEYS}
+
+
+def runtime_tables(ctx: HEContext, evk: EvalKey) -> Tuple[Dict, Dict, Dict]:
+    """(t1, t2, ek) dicts for running the step, all on ``ctx.device``."""
+    ek = {k: v.to(ctx.device) for k, v in evk_tables(evk).items()}
+    return region_tables(ctx, 1), region_tables(ctx, 2), ek
+
+
+# --------------------------------------------------------------------------
+# batched stage wrappers (value-identical to the per-item core stages)
+# --------------------------------------------------------------------------
+#
+# Kernel routing puts the batch where the kernel has independent rows:
+# CRT/iCRT are per coefficient (the batch folds into N), NTT/iNTT and the
+# Montgomery product are per row (the batch stacks the rows, the kernel
+# reads the prime of row r from r mod np).
+
+def _fold_np(x: torch.Tensor) -> torch.Tensor:
+    """(B, np, N) -> (np, B·N): concatenate the batch into the coefficient
+    axis (legal wherever the op is per-coefficient)."""
+    B, npn, N = x.shape
+    return x.transpose(0, 1).reshape(npn, B * N)
+
+
+def _unfold_np(x: torch.Tensor, B: int) -> torch.Tensor:
+    """(np, B·N) -> contiguous (B, np, N)."""
+    return x.reshape(x.shape[0], B, -1).transpose(0, 1).contiguous()
+
+
+def _crt_b(x: torch.Tensor, t: Dict, strategy: str,
+           use_kernels: bool = False) -> torch.Tensor:
+    """(B, N, K) limbs -> (B, np, N) residues. CRT rows are independent
+    per coefficient, so batching folds into the row dimension exactly."""
+    B, N, K = x.shape
+    args = (x.reshape(B * N, K), t["crt_tb"], t["crt_tb_shoup"], t["primes"])
+    if use_kernels:
+        res = crt_op(*args, strategy=strategy if strategy in _KERNEL_CRT
+                     else "acc3")
+    else:
+        res = crt(*args, strategy=strategy)
+    return _unfold_np(res, B)
+
+
+def _ntt_b(r: torch.Tensor, t: Dict, modified: bool,
+           use_kernels: bool = False) -> torch.Tensor:
+    tw = (t["psi_rev"], t["psi_rev_shoup"], t["primes"])
+    if use_kernels:
+        B, npn, N = r.shape
+        return ntt_op(r.reshape(B * npn, N), *tw,
+                      modified=modified).reshape(B, npn, N)
+    return ntt(r, *tw, modified=modified)
+
+
+def _intt_b(r: torch.Tensor, t: Dict, modified: bool,
+            use_kernels: bool = False) -> torch.Tensor:
+    tw = (t["ipsi_rev"], t["ipsi_rev_shoup"], t["n_inv"], t["n_inv_shoup"],
+          t["primes"])
+    if use_kernels:
+        B, npn, N = r.shape
+        return intt_op(r.reshape(B * npn, N), *tw,
+                       modified=modified).reshape(B, npn, N)
+    return intt(r, *tw, modified=modified)
+
+
+def _icrt_b(r: torch.Tensor, t: Dict, out_limbs: int, strategy: str,
+            use_kernels: bool = False) -> torch.Tensor:
+    """(B, np, N) residues -> (B, N, out_limbs) centered limbs."""
+    B = r.shape[0]
+    if use_kernels:
+        return icrt_op(_fold_np(r), t, out_limbs).reshape(
+            B, -1, out_limbs)
+    return torch.stack([icrt(
+        rr, t["primes"], t["inv_P"], t["inv_P_shoup"], t["pdivp"],
+        t["P_limbs"], t["P_half_limbs"], t["p_inv_f64"], out_limbs,
+        strategy=strategy) for rr in r])
+
+
+def _mont_mul_b(a: torch.Tensor, b: torch.Tensor, t: Dict,
+                use_kernels: bool = False) -> torch.Tensor:
+    consts = [t[k] for k in ("primes", "pprime", "r2")]
+    if use_kernels:
+        B, npn, N = a.shape
+        return pointwise_mont_op(
+            a.reshape(B * npn, N), b.reshape(B * npn, N),
+            *[c.repeat(B) for c in consts]).reshape(B, npn, N)
+    return narrow(mont_modmul(wide(a), wide(b),
+                              *[wide(c)[:, None] for c in consts]))
+
+
+# --------------------------------------------------------------------------
+# stage bundles and the steps built from them
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StageFns:
+    """Batched stage bundle for one parameter level on one device.
+
+    `to_eval`/`from_eval` are the paper's CRT→NTT and iNTT→iCRT chains
+    over (B, ·, ·) batches; `mont_mul` is the region-1 pointwise product,
+    `shoup_mul` the region-2 product against a key.
+    """
+
+    to_eval: Callable[[torch.Tensor, Dict], torch.Tensor]
+    from_eval: Callable[[torch.Tensor, Dict, int], torch.Tensor]
+    mont_mul: Callable[[torch.Tensor, torch.Tensor, Dict], torch.Tensor]
+    shoup_mul: Callable[..., torch.Tensor]
+    device: torch.device
+
+
+def make_stage_fns(device: str | torch.device = "cuda", *,
+                   crt_strategy: str = "matmul",
+                   icrt_strategy: str = "matmul",
+                   modified_shoup: bool = False,
+                   use_kernels: bool = False) -> StageFns:
+    """Bind the strategy knobs into a reusable stage bundle on `device`.
+
+    `use_kernels` routes CRT/NTT/iNTT/iCRT/pointwise through the CUDA
+    kernels (their plain versions for CPU tensors)."""
+    dev = resolve_device(device)
+
+    def to_eval(x, t):
+        return _ntt_b(_crt_b(x, t, crt_strategy, use_kernels), t,
+                      modified_shoup, use_kernels)
+
+    def from_eval(e, t, out_limbs):
+        return _icrt_b(_intt_b(e, t, modified_shoup, use_kernels), t,
+                       out_limbs, icrt_strategy, use_kernels)
+
+    def mont_mul(a, b, t):
+        return _mont_mul_b(a, b, t, use_kernels)
+
+    def shoup_mul(e, w, w_shoup, primes):
+        return pointwise_shoup_scale(e, w, w_shoup, primes,
+                                     modified=modified_shoup)
+
+    return StageFns(to_eval=to_eval, from_eval=from_eval, mont_mul=mont_mul,
+                    shoup_mul=shoup_mul, device=dev)
+
+
+def make_keyswitch_step(st: HEStatic, sf: StageFns):
+    """Region-2 key switch: ks(t2, ek, d) -> (ks_ax, ks_bx) at qlimbs.
+
+    The shared tail of HE Mul (d = d2) and every Galois operation
+    (d = σ_k(ax)) — paper Fig. 2's region 2: CRT→NTT at np₂ primes,
+    two Shoup pointwise products against the (rotation/evaluation) key,
+    iNTT→iCRT at ks_limbs, then the ÷Q rounding shift.
+    """
+    np2, ks_limbs = st.np2, st.ks_limbs
+    logQ, qlimbs = st.params.logQ, st.qlimbs
+
+    def ks(t2, ek, d):
+        e2 = sf.to_eval(d, t2)
+        p2 = t2["primes"]
+        out = []
+        for key in ("ax_ev", "bx_ev"):
+            prod = sf.shoup_mul(e2, ek[key][:np2], ek[key + "_shoup"][:np2],
+                                p2)
+            out.append(bigint.shift_right_round(
+                sf.from_eval(prod, t2, ks_limbs), logQ, out_limbs=qlimbs))
+        return out[0], out[1]
+
+    return ks
+
+
+def make_he_mul_step(st: HEStatic, device: str | torch.device = "cuda", *,
+                     crt_strategy: str = "matmul",
+                     icrt_strategy: str = "matmul",
+                     modified_shoup: bool = False,
+                     use_kernels: bool = False):
+    """Build step(t1, t2, ek, ax1, bx1, ax2, bx2) -> (ax3, bx3).
+
+    Operands are contiguous (B, N, qlimbs) limb batches on `device`;
+    outputs likewise. The strategy knobs select the paper's optimization
+    ladder per stage; `use_kernels` routes every stage through the CUDA
+    kernels, keeping the bitwise contract.
+    """
+    logq, qlimbs = st.logq, st.qlimbs
+    sf = make_stage_fns(device, crt_strategy=crt_strategy,
+                        icrt_strategy=icrt_strategy,
+                        modified_shoup=modified_shoup,
+                        use_kernels=use_kernels)
+    keyswitch = make_keyswitch_step(st, sf)
+
+    def step(t1, t2, ek, ax1, bx1, ax2, bx2):
+        for x in (ax1, bx1, ax2, bx2):
+            if x.device != sf.device or x.shape[1:] != (st.N, qlimbs):
+                raise ValueError(
+                    f"operands must be (B, {st.N}, {qlimbs}) on "
+                    f"{sf.device}; got {tuple(x.shape)} on {x.device}")
+        p1 = wide(t1["primes"])[:, None]
+        # ---- region 1: 4×(CRT→NTT), 3 pointwise, 3×(iNTT→iCRT) ----------
+        ea1 = sf.to_eval(ax1, t1)
+        eb1 = sf.to_eval(bx1, t1)
+        ea2 = sf.to_eval(ax2, t1)
+        eb2 = sf.to_eval(bx2, t1)
+
+        d0_ev = sf.mont_mul(eb1, eb2, t1)
+        d2_ev = sf.mont_mul(ea1, ea2, t1)
+        d1_ev = sf.mont_mul(narrow(modadd(wide(ea1), wide(eb1), p1)),
+                            narrow(modadd(wide(ea2), wide(eb2), p1)), t1)
+        d1_ev = narrow(modsub(modsub(wide(d1_ev), wide(d0_ev), p1),
+                              wide(d2_ev), p1))
+
+        d0 = sf.from_eval(d0_ev, t1, qlimbs)
+        d1 = sf.from_eval(d1_ev, t1, qlimbs)
+        d2 = bigint.mask_bits(sf.from_eval(d2_ev, t1, qlimbs), logq)
+
+        # ---- region 2: key switching against the evk --------------------
+        ks_ax, ks_bx = keyswitch(t2, ek, d2)
+
+        # ---- combine ----------------------------------------------------
+        ax3 = bigint.mask_bits(bigint.add(d1, ks_ax), logq)
+        bx3 = bigint.mask_bits(bigint.add(d0, ks_bx), logq)
+        return ax3, bx3
+
+    return step

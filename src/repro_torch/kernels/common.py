@@ -32,15 +32,20 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# launches per kernel since the last reset_launches(); one per wrapper call
-LAUNCHES = {"modmul": 0, "ntt": 0, "intt": 0, "crt": 0, "icrt": 0}
+# launches per kernel since the last reset_launches(); one per wrapper call.
+# The variants count apart, so that a run shows which of them it launched:
+# crt_mod2/crt_mod4 are crt with strategy "mod2"/"mod4", ntt_modified and
+# intt_modified the transforms with modified=True.
+LAUNCHES = {"modmul": 0, "ntt": 0, "intt": 0, "crt": 0, "icrt": 0,
+            "crt_mod2": 0, "crt_mod4": 0, "ntt_modified": 0,
+            "intt_modified": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "modmul_launch": [_P] * 6 + [_I, _I, _P],
-    "ntt_forward_launch": [_P] * 5 + [_I, _I, _P],
-    "ntt_inverse_launch": [_P] * 7 + [_I, _I, _P],
-    "crt_launch": [_P] * 5 + [_I] * 4 + [_P],
+    "ntt_forward_launch": [_P] * 5 + [_I] * 4 + [_P],
+    "ntt_inverse_launch": [_P] * 7 + [_I] * 4 + [_P],
+    "crt_launch": [_P] * 5 + [_I] * 5 + [_P],
     "icrt_launch": [_P] * 10 + [_I] * 5 + [_P],
 }
 

@@ -15,20 +15,25 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.core import crt as j_core_crt
 from repro.core import make_context as j_make_context
 from repro.core import test_params as j_test_params
+from repro.kernels.crt.crt import crt_pallas as j_crt_pallas
 from repro.kernels.crt.ops import crt_op as j_crt_op
 from repro.kernels.crt.ref import crt_ref as j_crt_ref
 from repro.kernels.icrt.ops import icrt_op as j_icrt_op
 from repro.kernels.icrt.ref import icrt_ref as j_icrt_ref
 from repro.kernels.modmul.ops import pointwise_mont_op as j_mont_op
 from repro.kernels.modmul.ref import pointwise_mont_ref as j_mont_ref
+from repro.kernels.ntt.ntt import intt_pallas as j_intt_pallas
+from repro.kernels.ntt.ntt import ntt_pallas as j_ntt_pallas
 from repro.kernels.ntt.ops import intt_op as j_intt_op
 from repro.kernels.ntt.ops import ntt_op as j_ntt_op
 from repro.kernels.ntt.ref import intt_ref as j_intt_ref
 from repro.kernels.ntt.ref import ntt_ref as j_ntt_ref
 from repro.nt.residue import ints_to_limb_array
 
+from repro_torch.core import crt as t_core_crt
 from repro_torch.core import make_context
 from repro_torch.core import test_params as t_test_params
 from repro_torch.core.ntt import pointwise_shoup_scale
@@ -36,7 +41,7 @@ from repro_torch.kernels import common
 from repro_torch.kernels.crt.ops import crt_op
 from repro_torch.kernels.crt.ref import crt_ref
 from repro_torch.kernels.icrt.ops import icrt_op
-from repro_torch.kernels.icrt.ref import icrt_ref
+from repro_torch.kernels.icrt.ref import icrt_inputs, icrt_ref
 from repro_torch.kernels.modmul.ops import pointwise_mont_op
 from repro_torch.kernels.modmul.ref import pointwise_mont_ref
 from repro_torch.kernels.ntt.ops import intt_op, ntt_op
@@ -141,10 +146,11 @@ def test_icrt_plain_matches_pallas_and_ref(logN, logQ):
             (jc.np1, jc.icrt1, tc.icrt1, jc.qlimbs),
             (jc.np2, jc.icrt2, tc.icrt2, jc.icrt2.accum_limbs + 2)):
         r = _rand_residues(g.primes, npn, jc.N, seed=20 + logN + npn)
-        got = icrt_ref(_t(r), tt, tg, out_limbs)
+        got = icrt_ref(_t(r), icrt_inputs(tt, tg), out_limbs)
         _assert_all_equal(got, j_icrt_op(jnp.asarray(r), jt, g, out_limbs),
                           j_icrt_ref(jnp.asarray(r), jt, g, out_limbs))
-        assert torch.equal(icrt_op(_t(r), tt, tg, out_limbs), got)
+        assert torch.equal(icrt_op(_t(r), icrt_inputs(tt, tg), out_limbs),
+                           got)
 
 
 def test_icrt_plain_boundary_values():
@@ -157,7 +163,8 @@ def test_icrt_plain_boundary_values():
             P - 1, 123456789, -987654321] + [0] * (jc.N - 12)
     res = np.stack([[v % pj for v in vals] for pj in primes_py]
                    ).astype(np.uint32)
-    got = icrt_ref(_t(res), tc.icrt1, tc.tables, tabs.accum_limbs)
+    got = icrt_ref(_t(res), icrt_inputs(tc.icrt1, tc.tables),
+                   tabs.accum_limbs)
     _assert_all_equal(
         got, j_icrt_op(jnp.asarray(res), tabs, g, tabs.accum_limbs),
         j_icrt_ref(jnp.asarray(res), tabs, g, tabs.accum_limbs,
@@ -206,3 +213,112 @@ def test_evk_shoup_product_matches_reference():
     _assert_all_equal(got, j_scale(jnp.asarray(x), jnp.asarray(y),
                                    jnp.asarray(ysh),
                                    jnp.asarray(g.primes[:npn])))
+
+
+@pytest.mark.parametrize("logN", [4, 7])
+def test_modified_ntt_intt_plain_match_pallas(logN):
+    """modified=True: the plain transforms equal the Pallas kernels, and
+    equal the exact transforms; a batch of rows takes twiddle row r mod np.
+    """
+    jc, tc = _ctx(logN=logN)
+    g, tg = jc.tables, tc.tables
+    npn, N = jc.np1, jc.N
+    x = _rand_residues(g.primes, npn, N, seed=40 + logN)
+    jfwd = (jnp.asarray(g.psi_rev[:npn]), jnp.asarray(g.psi_rev_shoup[:npn]),
+            jnp.asarray(g.primes[:npn]))
+    jinv = (jnp.asarray(g.ipsi_rev[:npn]),
+            jnp.asarray(g.ipsi_rev_shoup[:npn]), jnp.asarray(g.n_inv[:npn]),
+            jnp.asarray(g.n_inv_shoup[:npn]), jnp.asarray(g.primes[:npn]))
+    fwd = (tg.psi_rev[:npn], tg.psi_rev_shoup[:npn], tg.primes[:npn])
+    inv = (tg.ipsi_rev[:npn], tg.ipsi_rev_shoup[:npn], tg.n_inv[:npn],
+           tg.n_inv_shoup[:npn], tg.primes[:npn])
+    ev = ntt_ref(_t(x), *fwd, modified=True)
+    _assert_all_equal(ev, j_ntt_pallas(jnp.asarray(x), *jfwd, modified=True,
+                                       interpret=True))
+    assert torch.equal(ev, ntt_ref(_t(x), *fwd))
+    back = intt_ref(ev, *inv, modified=True)
+    _assert_all_equal(back, j_intt_pallas(jnp.asarray(_np(ev)), *jinv,
+                                          modified=True, interpret=True), x)
+    y = _rand_residues(g.primes, npn, N, seed=50 + logN)
+    rows = _t(np.concatenate([x, y]))
+    for mod in (False, True):
+        got = ntt_op(rows, *fwd, modified=mod)
+        assert torch.equal(got[:npn], ev)
+        assert torch.equal(got[npn:], ntt_ref(_t(y), *fwd))
+        assert torch.equal(intt_op(got, *inv, modified=mod), rows)
+
+
+@pytest.mark.parametrize("strategy", ["mod2", "mod4"])
+def test_crt_modx_plain_matches_pallas(strategy):
+    """The Mod-x plain version equals _crt_kernel_modx (interpret mode) and
+    the JAX core CRT, on random limbs and on all-(2^32−1) limbs against
+    tables of p−1 past the fold columns, where four products pass 2^63."""
+    jc, tc = _ctx(logN=5, logQ=120)
+    g, tg = jc.tables, tc.tables
+    N = jc.N
+    for npn, K in ((jc.np1, jc.qlimbs), (jc.np2, 2 * jc.qlimbs)):
+        tb = np.array(g.crt_tb[:npn, :K])
+        primes = np.asarray(g.primes[:npn]).astype(np.uint64)
+        x = _limbs(N, K, 32 * K, seed=60 + K)
+        for edge in (False, True):
+            if edge:
+                x = np.full((N, K), 0xFFFFFFFF, np.uint32)
+                tb[:, 3:] = (primes - 1)[:, None]
+            tbs = ((tb.astype(np.uint64) << np.uint64(32))
+                   // primes[:, None]).astype(np.uint32)
+            jargs = (jnp.asarray(x), jnp.asarray(tb), jnp.asarray(tbs),
+                     jnp.asarray(g.primes[:npn]))
+            got = crt_ref(_t(x), _t(tb), _t(tbs), tg.primes[:npn],
+                          strategy=strategy)
+            _assert_all_equal(
+                got, j_crt_pallas(*jargs, strategy=strategy, interpret=True),
+                j_core_crt.crt(*jargs, strategy=strategy))
+            assert torch.equal(crt_op(_t(x), _t(tb), _t(tbs),
+                                      tg.primes[:npn], strategy=strategy),
+                               got)
+
+
+def test_core_crt_and_icrt_strategies_match_reference():
+    """Every CRT and iCRT strategy of the port's core equals the JAX
+    package's; the kernels' formulations (acc3, columns) equal them too,
+    and "columns" is not a strategy of the port's iCRT."""
+    jc, tc = _ctx(logN=5, logQ=120)
+    g, tg = jc.tables, tc.tables
+    npn, K, N = jc.np2, 2 * jc.qlimbs, jc.N
+    x = _limbs(N, K, 32 * K, seed=70)
+    x[0], x[1] = 0, 0xFFFFFFFF
+    jargs = (jnp.asarray(x), jnp.asarray(g.crt_tb[:npn, :K]),
+             jnp.asarray(g.crt_tb_shoup[:npn, :K]),
+             jnp.asarray(g.primes[:npn]))
+    targs = (_t(x), tg.crt_tb[:npn, :K].contiguous(),
+             tg.crt_tb_shoup[:npn, :K].contiguous(), tg.primes[:npn])
+    for strategy in ("matmul", "shoup", "mod2", "mod4", "acc3"):
+        _assert_all_equal(t_core_crt.crt(*targs, strategy=strategy),
+                          j_core_crt.crt(*jargs, strategy=strategy))
+    with pytest.raises(ValueError):
+        t_core_crt.crt(*targs, strategy="mod3")
+
+    jt, tt = jc.icrt2, tc.icrt2
+    r = _rand_residues(g.primes, npn, N, seed=71)
+    out_limbs = jt.accum_limbs + 2
+    want = j_core_crt.icrt(
+        jnp.asarray(r), jt, jnp.asarray(g.primes[:npn]),
+        jnp.asarray(jt.inv_P), jnp.asarray(jt.inv_P_shoup),
+        jnp.asarray(jt.pdivp), jnp.asarray(jt.P_limbs),
+        jnp.asarray(jt.P_half_limbs), jnp.asarray(g.p_inv_f64[:npn]),
+        out_limbs, strategy="matmul")
+    targs = (_t(r), tg.primes[:npn], tt.inv_P, tt.inv_P_shoup, tt.pdivp,
+             tt.P_limbs, tt.P_half_limbs, tg.p_inv_f64[:npn], out_limbs)
+    for strategy in ("matmul", "acc3", "naive"):
+        got = t_core_crt.icrt(*targs, strategy=strategy)
+        _assert_all_equal(got, want)
+        _assert_all_equal(got, j_core_crt.icrt(
+            jnp.asarray(r), jt, jnp.asarray(g.primes[:npn]),
+            jnp.asarray(jt.inv_P), jnp.asarray(jt.inv_P_shoup),
+            jnp.asarray(jt.pdivp), jnp.asarray(jt.P_limbs),
+            jnp.asarray(jt.P_half_limbs),
+            jnp.asarray(g.p_inv_f64[:npn]), out_limbs,
+            strategy=strategy))
+    _assert_all_equal(icrt_ref(_t(r), icrt_inputs(tt, tg), out_limbs), want)
+    with pytest.raises(ValueError):
+        t_core_crt.icrt(*targs, strategy="columns")

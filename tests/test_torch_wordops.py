@@ -181,3 +181,28 @@ def test_shift_right_round_matches_reference(L, s, out_limbs):
         t = TB.shift_right_round(_t32(a), s, arithmetic=arith,
                                  out_limbs=out_limbs)
         np.testing.assert_array_equal(_np(t), np.asarray(j))
+
+
+def test_mulhi_approx3_matches_reference():
+    rng = np.random.default_rng(5)
+    a, b = _words(rng, (512,)), _words(rng, (512,))
+    a[:7], b[:7] = EDGES, EDGES[::-1]
+    np.testing.assert_array_equal(
+        _np(TW.mulhi_approx3(_t(a), _t(b))),
+        np.asarray(JW.mulhi_approx3(jnp.asarray(a), jnp.asarray(b))))
+
+
+@pytest.mark.parametrize("p", PRIMES)
+def test_shoup_modmul_modified_matches_reference(p):
+    """Any word x (0, p−1 and 2^32−1 included) times y in [0, p)."""
+    rng = np.random.default_rng(p + 1)
+    x = _words(rng, (512,))
+    y = rng.integers(0, p, size=512).astype(np.uint32)
+    x[:4], y[:4] = [0, p - 1, 0xFFFFFFFF, 0xFFFFFFFF], [p - 1, p - 1, p - 1, 0]
+    ysh = ((y.astype(np.uint64) << 32) // p).astype(np.uint32)
+    want = JW.shoup_modmul_modified(jnp.asarray(x), jnp.asarray(y),
+                                    jnp.asarray(ysh), jnp.uint32(p))
+    got = TW.shoup_modmul_modified(_t(x), _t(y), _t(ysh), p)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    np.testing.assert_array_equal(
+        _np(got), (x.astype(np.uint64) * y % p).astype(np.uint32))
