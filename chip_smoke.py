@@ -13,7 +13,10 @@ Phases; any failure exits non-zero and prints no result:
    its plain torch version on the same seeded inputs, bit for bit, and time
    both with CUDA events (the L2 cache is flushed before each timed
    launch). A variant's bound is that of the function it computes, the
-   same as its kernel's at that shape.
+   same as its kernel's at that shape. iCRT is also held bit for bit
+   against its plain version, at each of its shapes, on the inputs that
+   decide its carries, its ±1 ladder and its center-lift (every residue
+   p_j − 1, every residue 0, and X = ⌊P/2⌋, ⌊P/2⌋ + 1, P − 1, 1).
 3. Drive the main path: keygen → encrypt_message ×2 (2^15 slots) → he_mul →
    rescale → he_mod_down + he_add → decrypt_message. The launch counts are
    set to 0 just before and read just after; every kernel must have
@@ -232,6 +235,64 @@ def kernel_cases(torch, np, params, dev):
                                + n * out_limbs) + 8 * npn,
                           npn * n * (3 + PL)))
     return cases
+
+
+def icrt_edge_cases(torch, np, params, dev):
+    """(label, kernel call, plain call) of iCRT on the inputs that decide
+    its carries, its ±1 ladder and its center-lift, at every shape of
+    kernel_cases(): every residue p_j − 1 (the largest column sums), every
+    residue 0, and the residues of X = ⌊P/2⌋, ⌊P/2⌋ + 1, P − 1 and 1 in
+    turn along N (P the product of the np primes, built with Python ints)."""
+    from repro_torch.core.context import device_icrt_tables, device_tables
+    from repro_torch.kernels.icrt.ops import icrt_op
+    from repro_torch.kernels.icrt.ref import icrt_inputs, icrt_ref
+
+    g = device_tables(params, dev)
+    logq, N = params.logQ, params.N
+    K = params.qlimbs(logq)
+    ks_limbs = params.limbs_for_bits(logq + params.logQ) + 1
+    primes = [int(v) for v in g.primes.cpu().numpy().view(np.uint32)]
+    cases = []
+    for B in (1, BATCH):
+        n = B * N
+        for npn, out_limbs in ((params.np_region1(logq), K),
+                               (params.np_region2(logq), ks_limbs)):
+            t = icrt_inputs(device_icrt_tables(params, npn, dev), g)
+            P = 1
+            for p in primes[:npn]:
+                P *= p
+            xs = (P // 2, P // 2 + 1, P - 1, 1)
+            inputs = {
+                "p-1": np.array(primes[:npn], np.uint64)[:, None] - 1,
+                "zero": np.zeros((npn, 1), np.uint64),
+                "P/2,P/2+1,P-1,1": np.array(
+                    [[x % p for x in xs] for p in primes[:npn]], np.uint64),
+            }
+            for label, cols in inputs.items():
+                r = torch.from_numpy(np.ascontiguousarray(
+                    np.tile(cols, (1, n // cols.shape[1])).astype(np.uint32)
+                ).view(np.int32)).to(dev)
+                cases.append((f"np={npn} out={out_limbs}"
+                               f"{'' if B == 1 else f' B={B}'} {label}",
+                               lambda r=r, t=t, o=out_limbs: icrt_op(r, t, o),
+                               lambda r=r, t=t, o=out_limbs: icrt_ref(r, t,
+                                                                      o)))
+    return cases
+
+
+def check_icrt_edges(torch, np, params, dev) -> list:
+    """Phase 2, iCRT's edge inputs: the kernel equals its plain version."""
+    rows = []
+    for label, kern, plain in icrt_edge_cases(torch, np, params, dev):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max().item())
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"icrt {label}: kernel differs from its plain version "
+                f"(max abs err {err})")
+        rows.append({"input": label, "max_abs_err": err})
+        print(f"kernel icrt edge {label}: bitwise ok", flush=True)
+    return rows
 
 
 def check_kernels(torch, np, params, dev, flush) -> dict:
@@ -486,6 +547,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MiB
 
     per_kernel = check_kernels(torch, np, params, dev, flush)
+    icrt_edges = check_icrt_edges(torch, np, params, dev)
     path = drive_main_path(torch, np, params, dev, common)
     c1, c2, evk = path["operands"]
     batched = drive_batched_step(torch, np, params, dev, common, path["pk"],
@@ -513,13 +575,15 @@ def main() -> int:
             "main_path_launches": path["launches"][name],
             "batched_step_launches": batched["launches"][name],
             "he_mul_launches": path["he_mul_launches"].get(name, 0),
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows + (
+                icrt_edges if name == "icrt" else [])),
             "bitwise": True, "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"], "library_ms": None,
             "headline_shape": main_row["shape"],
-            "bytes": main_row["bytes"], "shapes": rows})
+            "bytes": main_row["bytes"], "shapes": rows,
+            **({"edge_inputs": icrt_edges} if name == "icrt" else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"he_mul": {
         "params": "paper_params(): logN=16 logQ=1200 beta=2^32",

@@ -46,7 +46,7 @@ SIGNATURES = {
     "ntt_forward_launch": [_P] * 5 + [_I] * 4 + [_P],
     "ntt_inverse_launch": [_P] * 7 + [_I] * 4 + [_P],
     "crt_launch": [_P] * 5 + [_I] * 5 + [_P],
-    "icrt_launch": [_P] * 10 + [_I] * 5 + [_P],
+    "icrt_launch": [_P] * 9 + [_I] * 8 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -23,7 +23,7 @@ from repro_torch.core.rns import PipelineConfig
 from repro_torch.kernels import common
 from repro_torch.kernels.crt.ops import crt_op
 from repro_torch.kernels.crt.ref import crt_ref
-from repro_torch.kernels.icrt.ops import icrt_op
+from repro_torch.kernels.icrt.ops import BLOCK, icrt_op
 from repro_torch.kernels.icrt.ref import icrt_inputs, icrt_ref
 from repro_torch.kernels.modmul.ops import pointwise_mont_op
 from repro_torch.kernels.modmul.ref import pointwise_mont_ref
@@ -89,6 +89,30 @@ def test_cuda_kernels_match_plain_versions(dev, logN, logQ):
     torch.cuda.synchronize()
     assert {k: v for k, v in common.LAUNCHES.items() if v} == {
         "modmul": 1, "ntt": 1, "intt": 1, "crt": 1, "icrt": 2}
+
+
+@pytest.mark.parametrize("region", [1, 2])
+def test_cuda_icrt_edge_inputs_and_block_rule(dev, region):
+    """The iCRT kernel equals its plain version on the largest column sums
+    (every residue p_j − 1), on random residues, at N below one block of
+    the kernel, and at sign-extended widths; an N above one block that is
+    not a multiple of it raises before any launch."""
+    p = small_params(logN=10, beta_bits=32, logQ=240, logp=24)
+    tc = make_context(p, p.logQ, dev)
+    tg = tc.tables
+    npn, tabs = (tc.np1, tc.icrt1) if region == 1 else (tc.np2, tc.icrt2)
+    t = icrt_inputs(tabs, tg)
+    primes = tg.primes.cpu().numpy().view(np.uint32)
+    pm1 = _t(np.repeat(primes[:npn, None] - 1, tc.N, 1), dev)
+    rand = _t(_residues(primes, npn, tc.N, 30 + region), dev)
+    common.reset_launches()
+    for ol in (tc.qlimbs, tabs.accum_limbs + 2):
+        for r in (pm1, rand, rand[:, :BLOCK // 2 + 16].contiguous()):
+            assert torch.equal(icrt_op(r, t, ol), icrt_ref(r, t, ol))
+    with pytest.raises(ValueError, match="multiple of"):
+        icrt_op(rand[:, :BLOCK + BLOCK // 2].contiguous(), t, tc.qlimbs)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in common.LAUNCHES.items() if v} == {"icrt": 6}
 
 
 def test_cuda_he_mul_equals_plain_path(dev):

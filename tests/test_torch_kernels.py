@@ -36,11 +36,14 @@ from repro.nt.residue import ints_to_limb_array
 from repro_torch.core import crt as t_core_crt
 from repro_torch.core import make_context
 from repro_torch.core import test_params as t_test_params
+from repro_torch.core.context import build_icrt_tables
+from repro_torch.core.params import paper_params
 from repro_torch.core.ntt import pointwise_shoup_scale
 from repro_torch.kernels import common
 from repro_torch.kernels.crt.ops import crt_op
 from repro_torch.kernels.crt.ref import crt_ref
-from repro_torch.kernels.icrt.ops import icrt_op
+from repro_torch.kernels.icrt.ops import (BLOCK, SMEM_LIMIT, icrt_geometry,
+                                          icrt_op)
 from repro_torch.kernels.icrt.ref import icrt_inputs, icrt_ref
 from repro_torch.kernels.modmul.ops import pointwise_mont_op
 from repro_torch.kernels.modmul.ref import pointwise_mont_ref
@@ -169,6 +172,34 @@ def test_icrt_plain_boundary_values():
         got, j_icrt_op(jnp.asarray(res), tabs, g, tabs.accum_limbs),
         j_icrt_ref(jnp.asarray(res), tabs, g, tabs.accum_limbs,
                    strategy="acc3"))
+
+
+@pytest.mark.parametrize("params,B", [
+    ("test-4-96", 1), ("test-5-120", 1), ("test-10-240", 3), ("paper", 1),
+    ("paper", 4)])
+def test_icrt_launch_geometry_fits_hopper(params, B):
+    """Every iCRT launch of these params (the test params above, the batched
+    step's of tests/test_torch_cuda.py, and paper_params() with np 81/122
+    for HE Mul and the B = 4 batched step) fits a Hopper block's shared
+    memory and covers its N coefficients; an N above one block that is not
+    a multiple of it raises."""
+    if params == "paper":
+        p = paper_params()
+    else:
+        _, logN, logQ = params.split("-")
+        p = t_test_params(logN=int(logN), beta_bits=32, logQ=int(logQ),
+                          logp=24)
+    q, N = p.logQ, B * p.N
+    for npn, out_limbs in ((p.np_region1(q), p.qlimbs(q)),
+                           (p.np_region2(q), p.limbs_for_bits(2 * q) + 1)):
+        A = build_icrt_tables(p, npn).accum_limbs
+        for ol in (out_limbs, A + 2):
+            blocks, threads, smem = icrt_geometry(N, npn, A, ol)
+            assert smem <= SMEM_LIMIT and threads == 128
+            assert blocks * BLOCK >= N > (blocks - 1) * BLOCK
+            assert N <= BLOCK or N % BLOCK == 0
+        with pytest.raises(ValueError, match="multiple of"):
+            icrt_geometry(max(N, BLOCK) + BLOCK // 2, npn, A, out_limbs)
 
 
 @pytest.mark.parametrize("npn,N", [(3, 64), (13, 512)])
