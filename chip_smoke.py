@@ -16,7 +16,9 @@ Phases; any failure exits non-zero and prints no result:
    same as its kernel's at that shape. iCRT is also held bit for bit
    against its plain version, at each of its shapes, on the inputs that
    decide its carries, its ±1 ladder and its center-lift (every residue
-   p_j − 1, every residue 0, and X = ⌊P/2⌋, ⌊P/2⌋ + 1, P − 1, 1).
+   p_j − 1, every residue 0, and X = ⌊P/2⌋, ⌊P/2⌋ + 1, P − 1, 1); CRT and
+   its variants on every limb 0xFFFFFFFF (the largest three-word and
+   two-word sums) and every limb 0.
 3. Drive the main path: keygen → encrypt_message ×2 (2^15 slots) → he_mul →
    rescale → he_mod_down + he_add → decrypt_message. The launch counts are
    set to 0 just before and read just after; every kernel must have
@@ -280,18 +282,52 @@ def icrt_edge_cases(torch, np, params, dev):
     return cases
 
 
-def check_icrt_edges(torch, np, params, dev) -> list:
-    """Phase 2, iCRT's edge inputs: the kernel equals its plain version."""
-    rows = []
-    for label, kern, plain in icrt_edge_cases(torch, np, params, dev):
+def crt_edge_cases(torch, np, params, dev):
+    """(kernel, label, kernel call, plain call) of CRT and its variants at
+    every shape of kernel_cases(), on every limb 0xFFFFFFFF (the largest
+    three-word sum, and the largest two-word sum of Mod-4, below 2^64) and
+    every limb 0."""
+    from repro_torch.core.context import device_tables
+    from repro_torch.kernels.crt.ops import crt_op
+    from repro_torch.kernels.crt.ref import crt_ref
+
+    g = device_tables(params, dev)
+    logq, N = params.logQ, params.N
+    K = params.qlimbs(logq)
+    cases = []
+    for B in (1, BATCH):
+        for label, word in (("all 0xFFFFFFFF", -1), ("all 0", 0)):
+            x = torch.full((B * N, K), word, dtype=torch.int32, device=dev)
+            for npn in (params.np_region1(logq), params.np_region2(logq)):
+                args = (x, g.crt_tb[:npn, :K].contiguous(),
+                        g.crt_tb_shoup[:npn, :K].contiguous(),
+                        g.primes[:npn])
+                for name, strategy in (("crt", "acc3"), ("crt_mod2", "mod2"),
+                                       ("crt_mod4", "mod4")):
+                    cases.append((
+                        name, f"K={K} np={npn}{'' if B == 1 else f' B={B}'}"
+                        f" {label}",
+                        lambda a=args, s=strategy: crt_op(*a, strategy=s),
+                        lambda a=args, s=strategy: crt_ref(*a, strategy=s)))
+    return cases
+
+
+def check_edges(torch, np, params, dev) -> dict:
+    """Phase 2, the edge inputs of iCRT and of CRT and its variants: each
+    kernel equals its plain version. Returns kernel -> rows."""
+    cases = [("icrt", *c) for c in icrt_edge_cases(torch, np, params, dev)]
+    rows: dict = {}
+    for name, label, kern, plain in cases + crt_edge_cases(torch, np, params,
+                                                           dev):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max().item())
         require(got.shape == want.shape and torch.equal(got, want),
-                f"icrt {label}: kernel differs from its plain version "
+                f"{name} {label}: kernel differs from its plain version "
                 f"(max abs err {err})")
-        rows.append({"input": label, "max_abs_err": err})
-        print(f"kernel icrt edge {label}: bitwise ok", flush=True)
+        rows.setdefault(name, []).append({"input": label,
+                                          "max_abs_err": err})
+        print(f"kernel {name} edge {label}: bitwise ok", flush=True)
     return rows
 
 
@@ -485,7 +521,8 @@ def time_he_mul(torch, params, operands, reps: int, use_kernels: bool
 
 def profile(torch, fn) -> dict:
     """Device time by kernel name over one call of fn, the busy share, and
-    the device time of the port's kernels against PyTorch's own."""
+    the device time of the port's kernels (in all and by kernel) against
+    PyTorch's own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU,
@@ -504,14 +541,20 @@ def profile(torch, fn) -> dict:
     device_ms = sum(ms for ms, _ in by_name.values())
     # the .cu sources keep every kernel in a top-level anonymous namespace;
     # PyTorch's own kernels are named void at::native::...
-    ours = [v for name, v in by_name.items() if name.removeprefix(
-        "void ").startswith("(anonymous namespace)::")]
+    ours: dict = {}
+    for name, (ms, n) in by_name.items():
+        short = name.removeprefix("void ")
+        if short.startswith("(anonymous namespace)::"):
+            short = short.split("::", 1)[1].split("(")[0]
+            prev_ms, prev_n = ours.get(short, (0.0, 0))
+            ours[short] = (prev_ms + ms, prev_n + n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
             "device_events": sum(n for _, n in by_name.values()),
-            "port_kernel_ms": sum(ms for ms, _ in ours),
-            "port_kernel_launches": sum(n for _, n in ours),
+            "port_kernel_ms": sum(ms for ms, _ in ours.values()),
+            "port_kernel_launches": sum(n for _, n in ours.values()),
+            "port_kernels": dict(sorted(ours.items())),
             "top": [[name[:80], ms, n] for name, (ms, n) in top]}
 
 
@@ -547,7 +590,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MiB
 
     per_kernel = check_kernels(torch, np, params, dev, flush)
-    icrt_edges = check_icrt_edges(torch, np, params, dev)
+    edges = check_edges(torch, np, params, dev)
     path = drive_main_path(torch, np, params, dev, common)
     c1, c2, evk = path["operands"]
     batched = drive_batched_step(torch, np, params, dev, common, path["pk"],
@@ -575,15 +618,15 @@ def main() -> int:
             "main_path_launches": path["launches"][name],
             "batched_step_launches": batched["launches"][name],
             "he_mul_launches": path["he_mul_launches"].get(name, 0),
-            "max_abs_err": max(r["max_abs_err"] for r in rows + (
-                icrt_edges if name == "icrt" else [])),
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               + edges.get(name, [])),
             "bitwise": True, "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"], "library_ms": None,
             "headline_shape": main_row["shape"],
             "bytes": main_row["bytes"], "shapes": rows,
-            **({"edge_inputs": icrt_edges} if name == "icrt" else {})})
+            **({"edge_inputs": edges[name]} if name in edges else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"he_mul": {
         "params": "paper_params(): logN=16 logQ=1200 beta=2^32",

@@ -23,14 +23,16 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "build", "library", "plain",
-           "check", "launch"]
+__all__ = ["LAUNCHES", "SMEM_LIMIT", "reset_launches", "build", "library",
+           "plain", "check", "launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+SMEM_LIMIT = 232_448  # dynamic shared memory a Hopper block may use
 
 # launches per kernel since the last reset_launches(); one per wrapper call.
 # The variants count apart, so that a run shows which of them it launched:
@@ -45,7 +47,7 @@ SIGNATURES = {
     "modmul_launch": [_P] * 6 + [_I, _I, _P],
     "ntt_forward_launch": [_P] * 5 + [_I] * 4 + [_P],
     "ntt_inverse_launch": [_P] * 7 + [_I] * 4 + [_P],
-    "crt_launch": [_P] * 5 + [_I] * 5 + [_P],
+    "crt_launch": [_P] * 5 + [_I] * 8 + [_P],
     "icrt_launch": [_P] * 9 + [_I] * 8 + [_P],
 }
 

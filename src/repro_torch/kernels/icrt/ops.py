@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import common
+from repro_torch.kernels.common import SMEM_LIMIT
 from repro_torch.kernels.icrt.ref import icrt_ref
 
 __all__ = ["icrt_op", "icrt_geometry", "icrt_args", "BLOCK", "SMEM_LIMIT"]
@@ -16,7 +17,6 @@ __all__ = ["icrt_op", "icrt_geometry", "icrt_args", "BLOCK", "SMEM_LIMIT"]
 BLOCK = 64          # coefficients per block (kBM of csrc/icrt.cu)
 _CHUNK = 32         # columns of P/p_j per chunk (kBN)
 _THREADS = 128      # threads per block (kThreads)
-SMEM_LIMIT = 232_448  # dynamic shared memory a Hopper block may use
 
 
 def icrt_geometry(N: int, npn: int, A: int, out_limbs: int

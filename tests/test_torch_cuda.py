@@ -19,8 +19,10 @@ from repro_torch.core import heaan as H
 from repro_torch.core import make_context
 from repro_torch.core import test_params as small_params
 from repro_torch.core.keys import keygen
+from repro_torch.core.params import paper_params
 from repro_torch.core.rns import PipelineConfig
 from repro_torch.kernels import common
+from repro_torch.kernels.crt.ops import BLOCK as CRT_BLOCK
 from repro_torch.kernels.crt.ops import crt_op
 from repro_torch.kernels.crt.ref import crt_ref
 from repro_torch.kernels.icrt.ops import BLOCK, icrt_op
@@ -113,6 +115,39 @@ def test_cuda_icrt_edge_inputs_and_block_rule(dev, region):
         icrt_op(rand[:, :BLOCK + BLOCK // 2].contiguous(), t, tc.qlimbs)
     torch.cuda.synchronize()
     assert {k: v for k, v in common.LAUNCHES.items() if v} == {"icrt": 6}
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 5, 38, 76])
+def test_cuda_crt_edge_inputs_and_tails(dev, K):
+    """The CRT kernel and its Mod-2/Mod-4 variants equal their plain
+    versions on every limb 0xFFFFFFFF (the largest three-word sum, and the
+    largest two-word sum of Mod-4, below 2^64), every limb 0 and random
+    limbs, for K that ends on a partial group of 4 limbs or none, np that
+    ends on a partial group of 8 primes or none, and N below one block and
+    over several; the tables, of the paper's primes, are built with Python
+    ints."""
+    primes = [int(v) for v in paper_params().primes[:122]]
+    rng = np.random.default_rng(K)
+    common.reset_launches()
+    for npn in (1, 3, 81, 122):
+        kt = max(K, 3)
+        tb = [[pow(2, 32 * k, p) for k in range(kt)] for p in primes[:npn]]
+        tabs = (_t(np.array(tb, np.uint64), dev),
+                _t([[(v << 32) // p for v in row]
+                    for row, p in zip(tb, primes)], dev),
+                _t(primes[:npn], dev))
+        for N in (CRT_BLOCK // 2 - 16, 3 * CRT_BLOCK):
+            for x in (np.full((N, K), 0xFFFFFFFF, np.uint64),
+                      np.zeros((N, K), np.uint64),
+                      rng.integers(0, 1 << 32, size=(N, K), dtype=np.uint64)):
+                xt = _t(x, dev)
+                for strategy in ("acc3", "mod2", "mod4"):
+                    assert torch.equal(
+                        crt_op(xt, *tabs, strategy=strategy),
+                        crt_ref(xt, *tabs, strategy=strategy))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in common.LAUNCHES.items() if v} == {
+        "crt": 24, "crt_mod2": 24, "crt_mod4": 24}
 
 
 def test_cuda_he_mul_equals_plain_path(dev):

@@ -40,7 +40,8 @@ from repro_torch.core.context import build_icrt_tables
 from repro_torch.core.params import paper_params
 from repro_torch.core.ntt import pointwise_shoup_scale
 from repro_torch.kernels import common
-from repro_torch.kernels.crt.ops import crt_op
+from repro_torch.kernels.crt.ops import BLOCK as CRT_BLOCK
+from repro_torch.kernels.crt.ops import crt_geometry, crt_op
 from repro_torch.kernels.crt.ref import crt_ref
 from repro_torch.kernels.icrt.ops import (BLOCK, SMEM_LIMIT, icrt_geometry,
                                           icrt_op)
@@ -200,6 +201,32 @@ def test_icrt_launch_geometry_fits_hopper(params, B):
             assert N <= BLOCK or N % BLOCK == 0
         with pytest.raises(ValueError, match="multiple of"):
             icrt_geometry(max(N, BLOCK) + BLOCK // 2, npn, A, out_limbs)
+
+
+@pytest.mark.parametrize("params,B", [
+    ("test-4-96", 1), ("test-5-120", 1), ("test-10-240", 3), ("paper", 1),
+    ("paper", 4)])
+def test_crt_launch_geometry_fits_hopper(params, B):
+    """Every CRT launch of these params (their limbs and the double-width
+    limbs of the tests, and K = 38; paper_params() with np 81/122 for HE
+    Mul and the B = 4 batched step) fits a Hopper block's shared memory
+    and covers its N coefficients; an N above one block that is not a
+    multiple of it raises."""
+    if params == "paper":
+        p = paper_params()
+    else:
+        _, logN, logQ = params.split("-")
+        p = t_test_params(logN=int(logN), beta_bits=32, logQ=int(logQ),
+                          logp=24)
+    q, N = p.logQ, B * p.N
+    for npn in (p.np_region1(q), p.np_region2(q)):
+        for K in (p.qlimbs(q), 2 * p.qlimbs(q), 38):
+            blocks, threads, smem = crt_geometry(N, K, npn)
+            assert smem <= SMEM_LIMIT and threads == 256
+            assert blocks * CRT_BLOCK >= N > (blocks - 1) * CRT_BLOCK
+            assert N <= CRT_BLOCK or N % CRT_BLOCK == 0
+        with pytest.raises(ValueError, match="multiple of"):
+            crt_geometry(max(N, CRT_BLOCK) + CRT_BLOCK // 2, 38, npn)
 
 
 @pytest.mark.parametrize("npn,N", [(3, 64), (13, 512)])
