@@ -18,7 +18,14 @@ Phases; any failure exits non-zero and prints no result:
    decide its carries, its ±1 ladder and its center-lift (every residue
    p_j − 1, every residue 0, and X = ⌊P/2⌋, ⌊P/2⌋ + 1, P − 1, 1); CRT and
    its variants on every limb 0xFFFFFFFF (the largest three-word and
-   two-word sums) and every limb 0.
+   two-word sums) and every limb 0. NTT and iNTT rows also carry the bytes
+   of a design of two passes over device memory (the data twice in and
+   twice out, the tables once); the time those bytes take at the bound's
+   memory rate is printed on a line of its own. Then the two
+   launch-geometry repairs: the batched step at ``test_params()``
+   (N = 32) for B = 3, 5 and 9, widths that iCRT's launch cannot tile (and
+   at B = 9 CRT's), equals per-pair he_mul; NTT → iNTT of 70000 rows of
+   16 words (beyond gridDim.y's 65535) equals the plain versions.
 3. Drive the main path: keygen → encrypt_message ×2 (2^15 slots) → he_mul →
    rescale → he_mod_down + he_add → decrypt_message. The launch counts are
    set to 0 just before and read just after; every kernel must have
@@ -141,9 +148,10 @@ def time_ms(torch, fn, reps: int, flush) -> float:
 
 
 def kernel_cases(torch, np, params, dev):
-    """(kernel, shape label, kernel call, plain call, bytes, multiplies)
-    for every shape HE Mul (B = 1) and the batched step (B = BATCH) give a
-    kernel or variant at `params`. A batch stacks B·np rows for the
+    """(kernel, shape label, kernel call, plain call, bytes, multiplies,
+    bytes of a two-pass design or None) for every shape HE Mul (B = 1)
+    and the batched step (B = BATCH) give a kernel or variant at
+    `params`. A batch stacks B·np rows for the
     per-row kernels (row r takes the tables of prime r mod np) and B·N
     coefficients for CRT and iCRT."""
     from repro_torch.core.context import device_icrt_tables, device_tables
@@ -181,7 +189,7 @@ def kernel_cases(torch, np, params, dev):
         cases.append(("modmul", f"np={np1}{tag}",
                       lambda a=a, b=b, m=mm: pointwise_mont_op(a, b, *m),
                       lambda a=a, b=b, m=mm: pointwise_mont_ref(a, b, *m),
-                      4 * (3 * rows * N + 3 * rows), 6 * rows * N))
+                      4 * (3 * rows * N + 3 * rows), 6 * rows * N, None))
         for npn in (np1, np2):
             rows = B * npn
             x = residues(npn, B)
@@ -190,8 +198,10 @@ def kernel_cases(torch, np, params, dev):
                    g.n_inv_shoup[:npn], g.primes[:npn])
             ev = ntt_ref(x, *fwd)
             butterflies = rows * (N // 2) * logN
-            # x and out once per row, the twiddle tables once per prime
+            # x and out once per row, the twiddle tables once per prime;
+            # two passes over device memory move the rows twice
             nbytes = 4 * (2 * rows * N + 2 * npn * N + npn)
+            floor = nbytes + 4 * 2 * rows * N
             for mod in (False, True):
                 # one bound for the function, whatever the variant: 3
                 # multiplies per Shoup product (quotient, w·x, q·p)
@@ -201,12 +211,13 @@ def kernel_cases(torch, np, params, dev):
                     "ntt" + sfx, f"np={npn}{tag}",
                     lambda x=x, f=fwd, m=mod: ntt_op(x, *f, modified=m),
                     lambda x=x, f=fwd, m=mod: ntt_ref(x, *f, modified=m),
-                    nbytes, per * butterflies))
+                    nbytes, per * butterflies, floor))
                 cases.append((
                     "intt" + sfx, f"np={npn}{tag}",
                     lambda e=ev, i=inv, m=mod: intt_op(e, *i, modified=m),
                     lambda e=ev, i=inv, m=mod: intt_ref(e, *i, modified=m),
-                    nbytes + 8 * npn, per * (butterflies + rows * N)))
+                    nbytes + 8 * npn, per * (butterflies + rows * N),
+                    floor + 8 * npn))
         n = B * N
         limbs = words(rng.integers(0, 1 << 32, size=(n, K), dtype=np.uint64))
         for npn in (np1, np2):
@@ -223,7 +234,7 @@ def kernel_cases(torch, np, params, dev):
                     name, f"K={K} np={npn}{tag}",
                     lambda a=args, s=strategy: crt_op(*a, strategy=s),
                     lambda a=args, s=strategy: crt_ref(*a, strategy=s),
-                    nbytes, nmul))
+                    nbytes, nmul, None))
         for npn, out_limbs in ((np1, K), (np2, ks_limbs)):
             tabs = device_icrt_tables(params, npn, dev)
             t = icrt_inputs(tabs, g)
@@ -235,7 +246,7 @@ def kernel_cases(torch, np, params, dev):
                           lambda r=r, t=t, o=out_limbs: icrt_ref(r, t, o),
                           4 * (npn * n + npn * (3 + PL) + 2 * A
                                + n * out_limbs) + 8 * npn,
-                          npn * n * (3 + PL)))
+                          npn * n * (3 + PL), None))
     return cases
 
 
@@ -334,7 +345,7 @@ def check_edges(torch, np, params, dev) -> dict:
 def check_kernels(torch, np, params, dev, flush) -> dict:
     """Phase 2: every kernel against its plain version, and their times."""
     per_kernel = {}
-    for name, shape, kern, plain, nbytes, nmul in kernel_cases(
+    for name, shape, kern, plain, nbytes, nmul, floor in kernel_cases(
             torch, np, params, dev):
         got, want = kern(), plain()
         torch.cuda.synchronize()
@@ -348,12 +359,71 @@ def check_kernels(torch, np, params, dev, flush) -> dict:
                "ms": time_ms(torch, kern, 20, flush),
                "plain_ms": time_ms(torch, plain, 3, flush),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-               "int32_muls": nmul}
+               "int32_muls": nmul,
+               **({} if floor is None else {"two_pass_bytes": floor})}
         per_kernel.setdefault(name, []).append(row)
         print(f"kernel {name:13s} {shape:20s} bitwise ok  "
               f"{row['ms']:.4f} ms  plain {row['plain_ms']:.3f} ms  "
               f"bound {b_ms:.4f} ms ({b_by})", flush=True)
     return per_kernel
+
+
+def check_geometry_repairs(torch, np, dev) -> dict:
+    """Phase 2, the two launch-geometry repairs: the batched step at
+    test_params() for B = 3, 5 and 9 (B·N = 96, 160 and 288 are above one
+    iCRT block and not a multiple of it, 288 also so for CRT's block)
+    equals per-pair he_mul, through the kernels; NTT → iNTT of 70000 rows of 16 words (beyond gridDim.y's
+    65535) equals the plain versions bit for bit."""
+    from repro_torch.core import heaan as H
+    from repro_torch.core.context import make_context
+    from repro_torch.core.keys import keygen
+    from repro_torch.core.params import test_params
+    from repro_torch.dist import he_pipeline as hp
+    from repro_torch.kernels.ntt.ops import intt_op, ntt_op
+    from repro_torch.kernels.ntt.ref import intt_ref, ntt_ref
+
+    p = test_params()
+    sk, pk, evk = keygen(p, seed=3, device=dev)
+    rng = np.random.default_rng(4)
+    cts = [H.encrypt_message(rng.random(8) + 1j * rng.random(8), pk, p,
+                             seed=20 + i) for i in range(18)]
+    st = hp.he_static(p, p.logQ)
+    tabs = hp.runtime_tables(make_context(p, p.logQ, dev), evk)
+    step = hp.make_he_mul_step(st, dev, use_kernels=True)
+    for B in (3, 5, 9):
+        ax, bx = step(*tabs, *[torch.stack([getattr(c, f) for c in
+                                            cts[s:2 * B:2]])
+                               for s, f in ((0, "ax"), (0, "bx"), (1, "ax"),
+                                            (1, "bx"))])
+        for i in range(B):
+            ref = H.he_mul(cts[2 * i], cts[2 * i + 1], evk, p)
+            require(torch.equal(ax[i], ref.ax) and torch.equal(bx[i], ref.bx),
+                    f"batched step at test_params(), B={B}: pair {i} "
+                    f"differs from he_mul")
+        print(f"batched step at test_params() B={B} (B·N={B * p.N}) == "
+              f"he_mul per pair", flush=True)
+
+    p4 = test_params(logN=4, logQ=96)
+    g = make_context(p4, p4.logQ, dev).tables
+    npn, rows = 2, 70000
+    p_rows = np.tile(g.primes[:npn].cpu().numpy().view(np.uint32),
+                     rows // npn).astype(np.uint64)
+    x = torch.from_numpy((rng.integers(0, 1 << 62, size=(rows, 16),
+                                       dtype=np.uint64) % p_rows[:, None])
+                         .astype(np.uint32).view(np.int32)).to(dev)
+    fwd = (g.psi_rev[:npn], g.psi_rev_shoup[:npn], g.primes[:npn])
+    inv = (g.ipsi_rev[:npn], g.ipsi_rev_shoup[:npn], g.n_inv[:npn],
+           g.n_inv_shoup[:npn], g.primes[:npn])
+    ev = ntt_op(x, *fwd)
+    back = intt_op(ev, *inv)
+    torch.cuda.synchronize()
+    require(torch.equal(ev, ntt_ref(x, *fwd))
+            and torch.equal(back, intt_ref(ev, *inv))
+            and torch.equal(back, x),
+            f"NTT → iNTT of {rows} rows differs from the plain versions")
+    print(f"NTT → iNTT of {rows} rows of 16 words == plain versions",
+          flush=True)
+    return {"batched_step_test_params": [3, 5, 9], "ntt_rows": rows}
 
 
 def drive_main_path(torch, np, params, dev, common) -> dict:
@@ -591,6 +661,7 @@ def main() -> int:
 
     per_kernel = check_kernels(torch, np, params, dev, flush)
     edges = check_edges(torch, np, params, dev)
+    repairs = check_geometry_repairs(torch, np, dev)
     path = drive_main_path(torch, np, params, dev, common)
     c1, c2, evk = path["operands"]
     batched = drive_batched_step(torch, np, params, dev, common, path["pk"],
@@ -628,13 +699,21 @@ def main() -> int:
             "bytes": main_row["bytes"], "shapes": rows,
             **({"edge_inputs": edges[name]} if name in edges else {})})
     print(json.dumps({"kernels": kernels}))
+    # computed, not measured: the two-pass design's bytes at the bound's
+    # memory rate, beside each NTT/iNTT shape's measured time
+    print(json.dumps({"two_pass_floor_computed": [
+        {"name": name, "shape": r["shape"], "bytes": r["two_pass_bytes"],
+         "floor_ms": bound_ms(r["two_pass_bytes"], 0)[0], "ms": r["ms"]}
+        for name, rows in per_kernel.items() for r in rows
+        if "two_pass_bytes" in r]}))
     print(json.dumps({"he_mul": {
         "params": "paper_params(): logN=16 logQ=1200 beta=2^32",
         "ms_median": statistics.median(mul_ms), "ms": mul_ms,
         "plain_ms": plain_ms, "kernel_ms_sum": per_he_mul["ms"],
         "kernel_bound_ms_sum": per_he_mul["bound_ms"],
         "main_path_s": path["path_s"], "err_mul": path["err_mul"],
-        "err_sum": path["err_sum"], "card": card}}))
+        "err_sum": path["err_sum"], "geometry_repairs": repairs,
+        "card": card}}))
     print(json.dumps({"batched_step": {
         "params": "paper_params(): logN=16 logQ=1200 beta=2^32",
         "batch": BATCH, "rungs": batched["times"],

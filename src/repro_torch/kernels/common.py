@@ -24,7 +24,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["LAUNCHES", "SMEM_LIMIT", "reset_launches", "build", "library",
-           "plain", "check", "launch"]
+           "plain", "check", "launch", "padded"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
@@ -43,10 +43,11 @@ LAUNCHES = {"modmul": 0, "ntt": 0, "intt": 0, "crt": 0, "icrt": 0,
             "intt_modified": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_PI = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "modmul_launch": [_P] * 6 + [_I, _I, _P],
-    "ntt_forward_launch": [_P] * 5 + [_I] * 4 + [_P],
-    "ntt_inverse_launch": [_P] * 7 + [_I] * 4 + [_P],
+    "ntt_forward_launch": [_P] * 5 + [_I] * 5 + [_PI, _P],
+    "ntt_inverse_launch": [_P] * 7 + [_I] * 5 + [_PI, _P],
     "crt_launch": [_P] * 5 + [_I] * 8 + [_P],
     "icrt_launch": [_P] * 9 + [_I] * 8 + [_P],
 }
@@ -122,6 +123,14 @@ def plain(t: torch.Tensor) -> bool:
     """Whether a wrapper given `t` runs the plain version: only for a
     tensor on the CPU. Any other device launches the kernel or raises."""
     return t.device.type == "cpu"
+
+
+def padded(n: int, block: int) -> int:
+    """The width a kernel that tiles `n` coefficients by `block` runs at:
+    `n` itself when it is at most one block or a multiple of one, else `n`
+    rounded up to the next multiple (the wrapper pads with zeros and
+    slices the result)."""
+    return n if n <= block or n % block == 0 else -(-n // block) * block
 
 
 def check(name: str, t: torch.Tensor, shape: tuple, device: torch.device,

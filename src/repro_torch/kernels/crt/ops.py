@@ -60,12 +60,18 @@ def crt_args(x, tb, tb_shoup, primes, every: int) -> tuple:
 
 def crt_op(x, tb, tb_shoup, primes, *, strategy: str = "acc3"):
     """(N, K) limbs -> (np, N) residues; tb/tb_shoup are (np, Kt) with
-    Kt ≥ max(K, 3). Strategies: acc3 | mod2 | mod4 (paper Table VIII)."""
+    Kt ≥ max(K, 3). Strategies: acc3 | mod2 | mod4 (paper Table VIII).
+    Any N: one the launch cannot tile (above one block, not a multiple of
+    it) runs zero-padded to a multiple of BLOCK."""
     if strategy not in _STRATEGIES:
         raise ValueError(f"unknown kernel CRT strategy {strategy!r}")
     if common.plain(x):
         return crt_ref(x, tb, tb_shoup, primes, strategy=strategy)
     every, counter = _STRATEGIES[strategy]
+    N, K = x.shape
+    n = common.padded(N, BLOCK)
+    if n != N:
+        x = torch.cat([x, x.new_zeros((n - N, K))])
     out, args = crt_args(x, tb, tb_shoup, primes, every)
     common.launch(counter, "crt_launch", *args)
-    return out
+    return out if n == N else out[:, :N].contiguous()

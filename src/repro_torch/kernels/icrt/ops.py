@@ -67,9 +67,15 @@ def icrt_args(r, t: dict, out_limbs: int) -> tuple:
 def icrt_op(r, t: dict, out_limbs: int):
     """(np, N) eval residues -> (N, out_limbs) centered two's complement.
     `t` holds the tables of :func:`~repro_torch.kernels.icrt.ref.icrt_inputs`
-    (a region table has them) on r's device."""
+    (a region table has them) on r's device. Any N: one the launch cannot
+    tile (above one block, not a multiple of it) runs zero-padded to a
+    multiple of BLOCK."""
     if common.plain(r):
         return icrt_ref(r, t, out_limbs)
+    npn, N = r.shape
+    n = common.padded(N, BLOCK)
+    if n != N:
+        r = torch.cat([r, r.new_zeros((npn, n - N))], dim=1)
     out, args = icrt_args(r, t, out_limbs)
     common.launch("icrt", "icrt_launch", *args)
-    return out
+    return out if n == N else out[:N]

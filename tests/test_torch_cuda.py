@@ -9,6 +9,7 @@ Without a card every test skips. The plain versions themselves are held
 against the JAX package in the other tests/test_torch_*.py files.
 """
 
+import ctypes
 import random
 
 import numpy as np
@@ -29,7 +30,7 @@ from repro_torch.kernels.icrt.ops import BLOCK, icrt_op
 from repro_torch.kernels.icrt.ref import icrt_inputs, icrt_ref
 from repro_torch.kernels.modmul.ops import pointwise_mont_op
 from repro_torch.kernels.modmul.ref import pointwise_mont_ref
-from repro_torch.kernels.ntt.ops import intt_op, ntt_op
+from repro_torch.kernels.ntt.ops import intt_op, ntt_geometry, ntt_op
 from repro_torch.kernels.ntt.ref import intt_ref, ntt_ref
 from repro_torch.nt.residue import ints_to_limb_array
 
@@ -55,8 +56,8 @@ def _residues(primes, npn, N, seed):
             % p[:, None]).astype(np.uint32)
 
 
-@pytest.mark.parametrize("logN,logQ", [(4, 96), (10, 120), (14, 120),
-                                       (16, 240)])
+@pytest.mark.parametrize("logN,logQ", [(4, 96), (5, 120), (10, 120),
+                                       (12, 240), (14, 120), (16, 240)])
 def test_cuda_kernels_match_plain_versions(dev, logN, logQ):
     """Every kernel equals its plain version bit for bit, and each wrapper
     call counts one launch."""
@@ -98,7 +99,7 @@ def test_cuda_icrt_edge_inputs_and_block_rule(dev, region):
     """The iCRT kernel equals its plain version on the largest column sums
     (every residue p_j − 1), on random residues, at N below one block of
     the kernel, and at sign-extended widths; an N above one block that is
-    not a multiple of it raises before any launch."""
+    not a multiple of it runs zero-padded in one launch."""
     p = small_params(logN=10, beta_bits=32, logQ=240, logp=24)
     tc = make_context(p, p.logQ, dev)
     tg = tc.tables
@@ -111,10 +112,11 @@ def test_cuda_icrt_edge_inputs_and_block_rule(dev, region):
     for ol in (tc.qlimbs, tabs.accum_limbs + 2):
         for r in (pm1, rand, rand[:, :BLOCK // 2 + 16].contiguous()):
             assert torch.equal(icrt_op(r, t, ol), icrt_ref(r, t, ol))
-    with pytest.raises(ValueError, match="multiple of"):
-        icrt_op(rand[:, :BLOCK + BLOCK // 2].contiguous(), t, tc.qlimbs)
+    odd = rand[:, :BLOCK + BLOCK // 2].contiguous()
+    assert torch.equal(icrt_op(odd, t, tc.qlimbs),
+                       icrt_ref(odd, t, tc.qlimbs))
     torch.cuda.synchronize()
-    assert {k: v for k, v in common.LAUNCHES.items() if v} == {"icrt": 6}
+    assert {k: v for k, v in common.LAUNCHES.items() if v} == {"icrt": 7}
 
 
 @pytest.mark.parametrize("K", [1, 2, 3, 5, 38, 76])
@@ -123,9 +125,9 @@ def test_cuda_crt_edge_inputs_and_tails(dev, K):
     versions on every limb 0xFFFFFFFF (the largest three-word sum, and the
     largest two-word sum of Mod-4, below 2^64), every limb 0 and random
     limbs, for K that ends on a partial group of 4 limbs or none, np that
-    ends on a partial group of 8 primes or none, and N below one block and
-    over several; the tables, of the paper's primes, are built with Python
-    ints."""
+    ends on a partial group of 8 primes or none, and N below one block,
+    over several, and of 1.5 blocks (run zero-padded to 2); the tables, of
+    the paper's primes, are built with Python ints."""
     primes = [int(v) for v in paper_params().primes[:122]]
     rng = np.random.default_rng(K)
     common.reset_launches()
@@ -136,7 +138,8 @@ def test_cuda_crt_edge_inputs_and_tails(dev, K):
                 _t([[(v << 32) // p for v in row]
                     for row, p in zip(tb, primes)], dev),
                 _t(primes[:npn], dev))
-        for N in (CRT_BLOCK // 2 - 16, 3 * CRT_BLOCK):
+        for N in (CRT_BLOCK // 2 - 16, CRT_BLOCK + CRT_BLOCK // 2,
+                  3 * CRT_BLOCK):
             for x in (np.full((N, K), 0xFFFFFFFF, np.uint64),
                       np.zeros((N, K), np.uint64),
                       rng.integers(0, 1 << 32, size=(N, K), dtype=np.uint64)):
@@ -147,7 +150,7 @@ def test_cuda_crt_edge_inputs_and_tails(dev, K):
                         crt_ref(xt, *tabs, strategy=strategy))
     torch.cuda.synchronize()
     assert {k: v for k, v in common.LAUNCHES.items() if v} == {
-        "crt": 24, "crt_mod2": 24, "crt_mod4": 24}
+        "crt": 36, "crt_mod2": 36, "crt_mod4": 36}
 
 
 def test_cuda_he_mul_equals_plain_path(dev):
@@ -171,11 +174,13 @@ def test_cuda_he_mul_equals_plain_path(dev):
     assert np.abs(out - z1 * z2).max() < 1e-3
 
 
-@pytest.mark.parametrize("logN,logQ", [(5, 120), (12, 240)])
+@pytest.mark.parametrize("logN,logQ", [(4, 96), (5, 120), (10, 120),
+                                       (12, 240), (14, 120), (16, 120)])
 def test_cuda_kernel_variants_match_plain_versions(dev, logN, logQ):
     """CRT Mod-2/Mod-4 and the modified-Shoup transforms equal their plain
-    versions, on one ciphertext and on a batch of three (rows taking
-    twiddle row r mod np, B·N coefficients), and count apart."""
+    versions, on one ciphertext and on batches of three and four (rows
+    taking twiddle row r mod np, B·N coefficients), equal the exact
+    transforms, and count apart; NTT → iNTT gives x back either way."""
     p = small_params(logN=logN, beta_bits=32, logQ=logQ, logp=24)
     tc = make_context(p, logQ, dev)
     tg = tc.tables
@@ -187,7 +192,7 @@ def test_cuda_kernel_variants_match_plain_versions(dev, logN, logQ):
     tb = tg.crt_tb[:npn, :2 * K].contiguous()
     tbs = tg.crt_tb_shoup[:npn, :2 * K].contiguous()
     common.reset_launches()
-    for B in (1, 3):
+    for B in (1, 3, 4):
         x = _t(np.concatenate([_residues(primes, npn, N, 10 + b)
                                for b in range(B)]), dev)
         ev = ntt_op(x, *fwd, modified=True)
@@ -196,6 +201,7 @@ def test_cuda_kernel_variants_match_plain_versions(dev, logN, logQ):
         back = intt_op(ev, *inv, modified=True)
         assert torch.equal(back, intt_ref(ev, *inv, modified=True))
         assert torch.equal(back, x)
+        assert torch.equal(intt_op(ev, *inv), back)
         pr = random.Random(logN + B)
         limbs = _t(ints_to_limb_array(
             [pr.getrandbits(64 * K) for _ in range(B * N)], 2 * K, 32), dev)
@@ -207,8 +213,8 @@ def test_cuda_kernel_variants_match_plain_versions(dev, logN, logQ):
             assert torch.equal(got, want)
     torch.cuda.synchronize()
     assert {k: v for k, v in common.LAUNCHES.items() if v} == {
-        "ntt": 2, "crt_mod2": 2, "crt_mod4": 2, "ntt_modified": 2,
-        "intt_modified": 2}
+        "ntt": 3, "intt": 3, "crt_mod2": 3, "crt_mod4": 3,
+        "ntt_modified": 3, "intt_modified": 3}
 
 
 @pytest.mark.parametrize("B", [2, 3])
@@ -216,8 +222,83 @@ def test_cuda_batched_step_equals_per_item_he_mul(dev, B):
     """The batched step through the kernels, on three rungs of the paper's
     ladder, gives he_mul's words for every pair; the default rung also
     equals the plain batched step."""
+    _check_batched_step(dev, small_params(logN=10, beta_bits=32, logQ=240,
+                                          logp=24), B)
+
+
+@pytest.mark.parametrize("B", [3, 5, 9])
+def test_cuda_batched_step_takes_widths_the_launch_cannot_tile(dev, B):
+    """At test_params() (N = 32) the folded widths B·N = 96, 160 and 288
+    are above one iCRT block and not a multiple of it, and 288 is so for
+    CRT's block too: the step runs them zero-padded and still gives
+    he_mul's words for every pair."""
+    _check_batched_step(dev, small_params(), B)
+
+
+def test_cuda_ntt_beyond_65535_rows(dev):
+    """NTT → iNTT of 70000 rows of 16 words (4.5 MB, more rows than
+    gridDim.y takes) equals the plain versions bit for bit."""
+    p = small_params(logN=4, beta_bits=32, logQ=96, logp=24)
+    tg = make_context(p, p.logQ, dev).tables
+    npn, rows = 2, 70000
+    p_rows = np.tile(tg.primes[:npn].cpu().numpy().view(np.uint32),
+                     rows // npn).astype(np.uint64)
+    x = _t(np.random.default_rng(7).integers(0, 1 << 62, size=(rows, 16),
+                                             dtype=np.uint64)
+           % p_rows[:, None], dev)
+    fwd = (tg.psi_rev[:npn], tg.psi_rev_shoup[:npn], tg.primes[:npn])
+    inv = (tg.ipsi_rev[:npn], tg.ipsi_rev_shoup[:npn], tg.n_inv[:npn],
+           tg.n_inv_shoup[:npn], tg.primes[:npn])
+    ev = ntt_op(x, *fwd)
+    assert torch.equal(ev, ntt_ref(x, *fwd))
+    back = intt_op(ev, *inv)
+    assert torch.equal(back, intt_ref(ev, *inv)) and torch.equal(back, x)
+
+
+def test_cuda_ntt_launch_refuses_a_geometry_it_cannot_run(dev):
+    """The NTT launch runs the passes ntt_geometry gives it, and refuses
+    before any launch a geometry whose blocks do not cover the rows, whose
+    shared memory does not hold a tile and its twiddles, whose stages do
+    not add up to log2 N, that puts several rows in a column pass's block,
+    or that names other threads a block."""
+    p = small_params(logN=12, beta_bits=32, logQ=240, logp=24)
+    tg = make_context(p, p.logQ, dev).tables
+    npn, B, logn = 3, 5, 12
+    rows = B * npn
+    primes = tg.primes.cpu().numpy().view(np.uint32)
+    x = _t(np.concatenate([_residues(primes, npn, 1 << logn, 40 + b)
+                           for b in range(B)]), dev)
+    fwd = (tg.psi_rev[:npn], tg.psi_rev_shoup[:npn], tg.primes[:npn])
+    out = torch.zeros_like(x)
+    lib = common.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(geom):
+        flat = [v for g in geom for v in g]
+        return lib.ntt_forward_launch(
+            *[t.data_ptr() for t in (x, *fwd, out)], rows, npn, logn, 0,
+            len(geom), (ctypes.c_int * len(flat))(*flat), stream)
+
+    good = ntt_geometry(rows, logn, npn)
+    (L0, t0, r0, b0, th0, s0), (L1, t1, r1, b1, th1, s1) = good
+    assert (L0, L1, r1) == (4, 8, 4)
+    for bad in ([(L0, t0, r0, b0 - 1, th0, s0), good[1]],
+                [good[0], (L1, t1, r1, b1 + 1, th1, s1)],
+                [good[0], (L1, t1, r1, b1, th1, s1 - 4)],
+                [(L0 - 1, t0 - 1, r0, b0 << 1, th0, s0), good[1]],
+                [(L0, t0, 2, -(-b0 // 2), th0, s0), good[1]],
+                [good[0], (L1, t1, r1, b1, th1 // 2, s1)],
+                [good[1]]):
+        assert run(bad) != 0
+    torch.cuda.synchronize()
+    assert not out.any()
+    assert run(good) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, ntt_ref(x, *fwd))
+
+
+def _check_batched_step(dev, p, B):
     from repro_torch.dist import he_pipeline as hp
-    p = small_params(logN=10, beta_bits=32, logQ=240, logp=24)
     sk, pk, evk = keygen(p, seed=3, device=dev)
     rng = np.random.default_rng(4)
     cts = [H.encrypt_message(rng.normal(size=8) + 1j * rng.normal(size=8),

@@ -48,7 +48,8 @@ from repro_torch.kernels.icrt.ops import (BLOCK, SMEM_LIMIT, icrt_geometry,
 from repro_torch.kernels.icrt.ref import icrt_inputs, icrt_ref
 from repro_torch.kernels.modmul.ops import pointwise_mont_op
 from repro_torch.kernels.modmul.ref import pointwise_mont_ref
-from repro_torch.kernels.ntt.ops import intt_op, ntt_op
+from repro_torch.kernels.ntt.ops import (intt_op, ntt_args, ntt_geometry,
+                                        ntt_op)
 from repro_torch.kernels.ntt.ref import intt_ref, ntt_ref
 
 CPU = torch.device("cpu")
@@ -227,6 +228,78 @@ def test_crt_launch_geometry_fits_hopper(params, B):
             assert N <= CRT_BLOCK or N % CRT_BLOCK == 0
         with pytest.raises(ValueError, match="multiple of"):
             crt_geometry(max(N, CRT_BLOCK) + CRT_BLOCK // 2, 38, npn)
+
+
+@pytest.mark.parametrize("params,B", [
+    ("test-5-120", 3), ("test-5-120", 5), ("test-5-120", 9),
+    ("test-7-120", 3), ("test-10-240", 3), ("paper", 1), ("paper", 4)])
+def test_batched_widths_pad_to_a_width_the_launch_takes(params, B):
+    """crt_op and icrt_op run a folded width B·N that their launch cannot
+    tile (above one block, not a multiple of it) zero-padded to the next
+    multiple of the block, which the launch takes; a width it can tile,
+    such as every paper shape, is not padded."""
+    if params == "paper":
+        p = paper_params()
+    else:
+        _, logN, logQ = params.split("-")
+        p = t_test_params(logN=int(logN), beta_bits=32, logQ=int(logQ),
+                          logp=24)
+    q, N = p.logQ, B * p.N
+    K = p.qlimbs(q)
+    for npn, out_limbs in ((p.np_region1(q), K),
+                           (p.np_region2(q), p.limbs_for_bits(2 * q) + 1)):
+        A = build_icrt_tables(p, npn).accum_limbs
+        for block, launch in (
+                (CRT_BLOCK, lambda n: crt_geometry(n, K, npn)),
+                (BLOCK, lambda n: icrt_geometry(n, npn, A, out_limbs))):
+            n = common.padded(N, block)
+            assert N <= n < N + block
+            tiles = N <= block or N % block == 0
+            assert (n == N) == tiles
+            if not tiles:
+                assert n % block == 0
+                with pytest.raises(ValueError, match="multiple of"):
+                    launch(N)
+            blocks, _, _ = launch(n)
+            assert blocks * block >= n > (blocks - 1) * block
+            if params == "paper":
+                assert n == N
+    if params == "test-5-120":   # N = 32: iCRT pads B = 3, 5, 9; CRT B = 9
+        assert common.padded(N, BLOCK) != N
+        assert (common.padded(N, CRT_BLOCK) != N) == (B == 9)
+
+
+@pytest.mark.parametrize("logn", [1, 4, 5, 9, 10, 12, 14, 16])
+def test_ntt_launch_geometry_fits_cuda_grid(logn):
+    """Every NTT/iNTT pass, for up to 122 × 600 rows (beyond gridDim.y's
+    65535), is one flat grid within CUDA's 2^31 − 1 blocks, of at most
+    1024 threads and SMEM_LIMIT bytes, whose blocks cover every row's
+    tiles; the passes run every stage once, at most 8 a pass, and
+    N = 2^16 takes two passes of 8, the chunk pass 4 rows a block. This
+    is the geometry the launcher takes (ntt_args)."""
+    for npn, rows in ((1, 1), (3, 3), (81, 81), (122, 122), (122, 4 * 122),
+                      (1, 65535), (2, 65536), (122, 122 * 600)):
+        passes = ntt_geometry(rows, logn, npn)
+        assert sum(L for L, *_ in passes) == logn
+        assert len(passes) == 1 + max(0, -(-(logn - 8) // 8))
+        for i, (L, logT, rpb, blocks, threads, smem) in enumerate(passes):
+            assert 1 <= L <= 8 and L <= logT <= max(logn, L + 5)
+            assert rpb == 1 or i == len(passes) - 1
+            assert blocks == npn * -(-(rows // npn) // rpb) << (logn - logT)
+            assert rows // 4 <= blocks <= 2 ** 31 - 1
+            assert threads <= 1024 and smem <= SMEM_LIMIT
+        n, geom = ntt_args(rows, logn, npn)
+        assert n == len(passes)
+        assert list(geom) == [v for g in passes for v in g]
+    if logn == 16:
+        assert [(L, rpb) for L, _, rpb, *_ in ntt_geometry(4 * 122, 16, 122)
+                ] == [(8, 1), (8, 4)]
+    with pytest.raises(ValueError):
+        ntt_geometry(2 ** 31, logn, 1)
+    with pytest.raises(ValueError):
+        ntt_geometry(1, 31, 1)
+    with pytest.raises(ValueError):
+        ntt_geometry(5, logn, 2)
 
 
 @pytest.mark.parametrize("npn,N", [(3, 64), (13, 512)])
