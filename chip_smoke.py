@@ -13,7 +13,11 @@ Phases; any failure exits non-zero and prints no result:
    its plain torch version on the same seeded inputs, bit for bit, and time
    both with CUDA events (the L2 cache is flushed before each timed
    launch). A variant's bound is that of the function it computes, the
-   same as its kernel's at that shape. iCRT is also held bit for bit
+   same as its kernel's at that shape. The kernels alone are held and
+   timed so too at the shapes of the levels the circuit path descends to
+   (logq 1170, 1140, 1110: CRT K 37–35, np₁ 79–75, np₂ 121–119, iCRT
+   out 76–74) and of Galois keygen (CRT K 75 into np 81 and 122, iCRT np
+   81 → 75), at B = 1 and 4. iCRT is also held bit for bit
    against its plain version, at each of its shapes, on the inputs that
    decide its carries, its ±1 ladder and its center-lift (every residue
    p_j − 1, every residue 0, and X = ⌊P/2⌋, ⌊P/2⌋ + 1, P − 1, 1); CRT and
@@ -46,14 +50,26 @@ Phases; any failure exits non-zero and prints no result:
 5. Time HE Mul (median of several runs) through the kernels and through
    the plain versions, and trace one HE Mul and one batched step with
    torch.profiler: device time by kernel and the device's busy share.
+6. The circuit path (``repro_torch.hserve``) on phase 3's keys: Galois
+   keygen for r ∈ CIRCUIT_ROTATIONS and conjugation; circuit A (the
+   degree-4 demo circuit on N/4 slots), circuit B (an affine layer on 64
+   slots: mul_plain → rescale → add_plain → rotate(1) → sub → slot_sum)
+   and circuit C (B's first two nodes, then mod_raise 1170 → 1200) through
+   ``execute_circuit_reference`` on the kernels and on the plain path,
+   equal bit for bit, with the launches derived in OP_LAUNCHES; A within
+   0.3 of conj(z⁴) + z, B within 1e-2 of its numpy value. Each op alone
+   (launches, median of 5) and each batched step of ``hserve.engine`` at
+   B = 4 (equal to the single op on every item, launching what one op
+   does; median of 5), and a torch.profiler split of one he_rotate.
 
 Before the last line it prints the nvidia-smi line, one JSON line of
 per-kernel numbers (``{"kernels": [...]}``: the headline times are those
 of ``headline_shape``, HE Mul's region 1 for a kernel and the batched
 step's first shape for a variant; every shape is under ``shapes``) and JSON
 lines for HE Mul's times, the batched step's and their traces;
-the last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX
-and nothing of the JAX package.
+the circuit path's JSON line and the nvidia-smi line again; the last line
+is ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -92,6 +108,23 @@ RUNGS = {
     "mod4": ({"crt_strategy": "mod4"}, {"crt_mod4": 5, "ntt": 5, "intt": 5,
                                         "icrt": 5, "modmul": 3}),
 }
+# Phase 6, the circuit path: the rotation keys it makes (circuit B's
+# rotate(1) and slot sum over AFFINE_SLOTS slots, the slot-sum step), and
+# the launches of one single-ciphertext op, read off the code: a Galois
+# op is region 2 alone (core/rotate.py _apply_galois: 1 CRT→NTT, 2
+# iNTT→iCRT), he_mul_plain region 1 alone (core/heaan.py: 3 CRT→NTT, 2
+# Montgomery products, 2 iNTT→iCRT); the limb ops launch nothing. A
+# batched step launches what one op does: the batch folds into each launch.
+CIRCUIT_ROTATIONS = (1, 2, 4, 8, 16, 32)
+AFFINE_SLOTS = 64
+GALOIS_LAUNCHES = {"crt": 1, "ntt": 1, "intt": 2, "icrt": 2}
+OP_LAUNCHES = {
+    "mul": HE_MUL_LAUNCHES, "rotate": GALOIS_LAUNCHES,
+    "conjugate": GALOIS_LAUNCHES,
+    "mul_plain": {"crt": 3, "ntt": 3, "modmul": 2, "intt": 2, "icrt": 2},
+    **{op: {} for op in ("add", "sub", "rescale", "mod_down", "mod_raise",
+                         "add_plain")},
+}
 SOURCES = {
     "modmul": ("kernels/csrc/modmul.cu",
                "src/repro/kernels/modmul/modmul.py:33"),
@@ -115,6 +148,65 @@ class SmokeFailure(Exception):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def circuit_levels(params) -> tuple[int, ...]:
+    """The levels below logQ that the circuit path runs kernels at: the
+    degree-4 circuit's second mul (logQ − logp), then down to its
+    conjugate (logQ − 3·logp)."""
+    return tuple(params.logQ - i * params.logp for i in (1, 2, 3))
+
+
+def scaled(counts: dict, n: int) -> dict:
+    return {k: n * v for k, v in counts.items()}
+
+
+def summed(*counts: dict) -> dict:
+    out: dict = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return {k: v for k, v in out.items() if v}
+
+
+def launched(torch, common, fn):
+    """(fn(), the launches fn made by kernel)."""
+    before = dict(common.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in common.LAUNCHES.items()
+                 if v - before[k]}
+
+
+def median_ms(torch, fn, reps: int = 5) -> tuple[float, list]:
+    """Median host time of fn() + synchronize over reps runs, after one
+    warm-up run."""
+    fn()
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms), ms
+
+
+def random_ciphertexts(torch, np, params, pk, dev, seeds) -> list:
+    """Ciphertexts at logQ of random plaintexts below Q, encrypted from
+    `seeds` (encode's host-side big-integer work would only cost time)."""
+    from repro_torch.core import bigint
+    from repro_torch.core import heaan as H
+    qlimbs = params.qlimbs(params.logQ)
+    rng = np.random.default_rng(8)
+    cts = []
+    for seed in seeds:
+        pt = torch.from_numpy(rng.integers(
+            0, 1 << 32, size=(params.N, qlimbs), dtype=np.uint64
+        ).astype(np.uint32).view(np.int32)).to(dev)
+        cts.append(H.encrypt_coeffs(bigint.mask_bits(pt, params.logQ), pk,
+                                    params, params.N // 2, seed))
+    return cts
 
 
 def card_line() -> str:
@@ -147,13 +239,45 @@ def time_ms(torch, fn, reps: int, flush) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def kernel_cases(torch, np, params, dev):
+def level_shapes(params, logq: int) -> tuple[int, int, int, int]:
+    """(qlimbs, np₁, np₂, ks_limbs) of a level: CRT's K, the region-1 and
+    region-2 prime counts (np₁ is also he_mul_plain's) and the width iCRT
+    writes in region 2."""
+    return (params.qlimbs(logq), params.np_region1(logq),
+            params.np_region2(logq),
+            params.limbs_for_bits(logq + params.logQ) + 1)
+
+
+def kernel_cases(torch, np, params, dev, logq=None, variants=True):
     """(kernel, shape label, kernel call, plain call, bytes, multiplies,
     bytes of a two-pass design or None) for every shape HE Mul (B = 1)
-    and the batched step (B = BATCH) give a kernel or variant at
-    `params`. A batch stacks B·np rows for the
-    per-row kernels (row r takes the tables of prime r mod np) and B·N
-    coefficients for CRT and iCRT."""
+    and the batched step (B = BATCH) give a kernel or variant at level
+    `logq` (default logQ) of `params`; without `variants` the kernels
+    alone. A batch stacks B·np rows for the per-row kernels (row r takes
+    the tables of prime r mod np) and B·N coefficients for CRT and iCRT."""
+    K, np1, np2, ks_limbs = level_shapes(params, logq or params.logQ)
+    return _shape_cases(torch, np, params, dev, modmul=(np1,),
+                        ntt=(np1, np2), crt=((K, np1), (K, np2)),
+                        icrt=((np1, K), (np2, ks_limbs)), variants=variants)
+
+
+def keygen_kernel_cases(torch, np, params, dev):
+    """The shapes keygen gives CRT and iCRT beyond those of the levels:
+    the 2·logQ-bit key words (K = limbs of Q²) into the key-product primes
+    and into region 2's, and the key product back to those limbs."""
+    q2 = params.limbs_for_bits(2 * params.logQ)
+    np_kk = params.np_for_bits(params.primes,
+                               2 * params.logQ + params.logN + 3)
+    return _shape_cases(torch, np, params, dev, modmul=(), ntt=(),
+                        crt=((q2, np_kk), (q2, params.np_region2(
+                            params.logQ))),
+                        icrt=((np_kk, q2),), variants=False)
+
+
+def _shape_cases(torch, np, params, dev, modmul, ntt, crt, icrt,
+                 variants):
+    """kernel_cases at the given shapes: modmul and NTT/iNTT at each np,
+    CRT at each (K, np), iCRT at each (np, out limbs); B = 1 and BATCH."""
     from repro_torch.core.context import device_icrt_tables, device_tables
     from repro_torch.kernels.crt.ops import crt_op
     from repro_torch.kernels.crt.ref import crt_ref
@@ -165,11 +289,7 @@ def kernel_cases(torch, np, params, dev):
     from repro_torch.kernels.ntt.ref import intt_ref, ntt_ref
 
     g = device_tables(params, dev)
-    logq = params.logQ
     N, logN = params.N, params.logN
-    K = params.qlimbs(logq)
-    np1, np2 = params.np_region1(logq), params.np_region2(logq)
-    ks_limbs = params.limbs_for_bits(logq + params.logQ) + 1
     rng = np.random.default_rng(2024)
     primes = g.primes.cpu().numpy().view(np.uint32).astype(np.uint64)
 
@@ -183,14 +303,15 @@ def kernel_cases(torch, np, params, dev):
     cases = []
     for B in (1, BATCH):
         tag = "" if B == 1 else f" B={B}"
-        rows = B * np1
-        a, b = residues(np1, B), residues(np1, B)
-        mm = tuple(v[:np1].repeat(B) for v in (g.primes, g.pprime, g.r2))
-        cases.append(("modmul", f"np={np1}{tag}",
-                      lambda a=a, b=b, m=mm: pointwise_mont_op(a, b, *m),
-                      lambda a=a, b=b, m=mm: pointwise_mont_ref(a, b, *m),
-                      4 * (3 * rows * N + 3 * rows), 6 * rows * N, None))
-        for npn in (np1, np2):
+        for npn in modmul:
+            rows = B * npn
+            a, b = residues(npn, B), residues(npn, B)
+            mm = tuple(v[:npn].repeat(B) for v in (g.primes, g.pprime, g.r2))
+            cases.append(("modmul", f"np={npn}{tag}",
+                          lambda a=a, b=b, m=mm: pointwise_mont_op(a, b, *m),
+                          lambda a=a, b=b, m=mm: pointwise_mont_ref(a, b, *m),
+                          4 * (3 * rows * N + 3 * rows), 6 * rows * N, None))
+        for npn in ntt:
             rows = B * npn
             x = residues(npn, B)
             fwd = (g.psi_rev[:npn], g.psi_rev_shoup[:npn], g.primes[:npn])
@@ -202,7 +323,7 @@ def kernel_cases(torch, np, params, dev):
             # two passes over device memory move the rows twice
             nbytes = 4 * (2 * rows * N + 2 * npn * N + npn)
             floor = nbytes + 4 * 2 * rows * N
-            for mod in (False, True):
+            for mod in ((False, True) if variants else (False,)):
                 # one bound for the function, whatever the variant: 3
                 # multiplies per Shoup product (quotient, w·x, q·p)
                 per = 3
@@ -219,23 +340,26 @@ def kernel_cases(torch, np, params, dev):
                     nbytes + 8 * npn, per * (butterflies + rows * N),
                     floor + 8 * npn))
         n = B * N
-        limbs = words(rng.integers(0, 1 << 32, size=(n, K), dtype=np.uint64))
-        for npn in (np1, np2):
-            tb = g.crt_tb[:npn, :K].contiguous()
-            tbs = g.crt_tb_shoup[:npn, :K].contiguous()
+        for K, npn in crt:
+            limbs = words(rng.integers(0, 1 << 32, size=(n, K),
+                                       dtype=np.uint64))
+            tb = g.crt_tb[:npn, :max(K, 3)].contiguous()
+            tbs = g.crt_tb_shoup[:npn, :max(K, 3)].contiguous()
             args = (limbs, tb, tbs, g.primes[:npn])
             nbytes = 4 * (n * K + 2 * npn * K + npn + npn * n)
             # what the function needs, whatever the strategy: K products
             # and one fold of 3 Shoup products (the acc3 count)
             nmul = npn * n * (K + 9)
-            for name, strategy in (("crt", "acc3"), ("crt_mod2", "mod2"),
-                                   ("crt_mod4", "mod4")):
+            for name, strategy in (
+                    (("crt", "acc3"), ("crt_mod2", "mod2"),
+                     ("crt_mod4", "mod4")) if variants
+                    else (("crt", "acc3"),)):
                 cases.append((
                     name, f"K={K} np={npn}{tag}",
                     lambda a=args, s=strategy: crt_op(*a, strategy=s),
                     lambda a=args, s=strategy: crt_ref(*a, strategy=s),
                     nbytes, nmul, None))
-        for npn, out_limbs in ((np1, K), (np2, ks_limbs)):
+        for npn, out_limbs in icrt:
             tabs = device_icrt_tables(params, npn, dev)
             t = icrt_inputs(tabs, g)
             r = words(rng.integers(0, 1 << 62, size=(npn, n), dtype=np.uint64)
@@ -250,26 +374,41 @@ def kernel_cases(torch, np, params, dev):
     return cases
 
 
-def icrt_edge_cases(torch, np, params, dev):
+def edge_shapes(params) -> tuple[list, list]:
+    """The iCRT shapes (np, out limbs) and CRT shapes (K, np) of every
+    level phase 2 checks (kernel_cases at logQ and each of
+    circuit_levels()) and of keygen (keygen_kernel_cases)."""
+    icrt, crt = [], []
+    for logq in (params.logQ, *circuit_levels(params)):
+        K, np1, np2, ks_limbs = level_shapes(params, logq)
+        icrt += [(np1, K), (np2, ks_limbs)]
+        crt += [(K, np1), (K, np2)]
+    q2 = params.limbs_for_bits(2 * params.logQ)
+    np_kk = params.np_for_bits(params.primes,
+                               2 * params.logQ + params.logN + 3)
+    icrt.append((np_kk, q2))
+    crt += [(q2, np_kk), (q2, params.np_region2(params.logQ))]
+    return icrt, crt
+
+
+def icrt_edge_cases(torch, np, params, dev, shapes):
     """(label, kernel call, plain call) of iCRT on the inputs that decide
-    its carries, its ±1 ladder and its center-lift, at every shape of
-    kernel_cases(): every residue p_j − 1 (the largest column sums), every
-    residue 0, and the residues of X = ⌊P/2⌋, ⌊P/2⌋ + 1, P − 1 and 1 in
-    turn along N (P the product of the np primes, built with Python ints)."""
+    its carries, its ±1 ladder and its center-lift, at every shape
+    (np, out limbs) of `shapes`: every residue p_j − 1 (the largest column
+    sums), every residue 0, and the residues of X = ⌊P/2⌋, ⌊P/2⌋ + 1,
+    P − 1 and 1 in turn along N (P the product of the np primes, built
+    with Python ints)."""
     from repro_torch.core.context import device_icrt_tables, device_tables
     from repro_torch.kernels.icrt.ops import icrt_op
     from repro_torch.kernels.icrt.ref import icrt_inputs, icrt_ref
 
     g = device_tables(params, dev)
-    logq, N = params.logQ, params.N
-    K = params.qlimbs(logq)
-    ks_limbs = params.limbs_for_bits(logq + params.logQ) + 1
+    N = params.N
     primes = [int(v) for v in g.primes.cpu().numpy().view(np.uint32)]
     cases = []
     for B in (1, BATCH):
         n = B * N
-        for npn, out_limbs in ((params.np_region1(logq), K),
-                               (params.np_region2(logq), ks_limbs)):
+        for npn, out_limbs in shapes:
             t = icrt_inputs(device_icrt_tables(params, npn, dev), g)
             P = 1
             for p in primes[:npn]:
@@ -293,9 +432,9 @@ def icrt_edge_cases(torch, np, params, dev):
     return cases
 
 
-def crt_edge_cases(torch, np, params, dev):
+def crt_edge_cases(torch, np, params, dev, shapes):
     """(kernel, label, kernel call, plain call) of CRT and its variants at
-    every shape of kernel_cases(), on every limb 0xFFFFFFFF (the largest
+    every shape (K, np) of `shapes`, on every limb 0xFFFFFFFF (the largest
     three-word sum, and the largest two-word sum of Mod-4, below 2^64) and
     every limb 0."""
     from repro_torch.core.context import device_tables
@@ -303,15 +442,15 @@ def crt_edge_cases(torch, np, params, dev):
     from repro_torch.kernels.crt.ref import crt_ref
 
     g = device_tables(params, dev)
-    logq, N = params.logQ, params.N
-    K = params.qlimbs(logq)
+    N = params.N
     cases = []
     for B in (1, BATCH):
         for label, word in (("all 0xFFFFFFFF", -1), ("all 0", 0)):
-            x = torch.full((B * N, K), word, dtype=torch.int32, device=dev)
-            for npn in (params.np_region1(logq), params.np_region2(logq)):
-                args = (x, g.crt_tb[:npn, :K].contiguous(),
-                        g.crt_tb_shoup[:npn, :K].contiguous(),
+            for K, npn in shapes:
+                x = torch.full((B * N, K), word, dtype=torch.int32,
+                               device=dev)
+                args = (x, g.crt_tb[:npn, :max(K, 3)].contiguous(),
+                        g.crt_tb_shoup[:npn, :max(K, 3)].contiguous(),
                         g.primes[:npn])
                 for name, strategy in (("crt", "acc3"), ("crt_mod2", "mod2"),
                                        ("crt_mod4", "mod4")):
@@ -324,12 +463,15 @@ def crt_edge_cases(torch, np, params, dev):
 
 
 def check_edges(torch, np, params, dev) -> dict:
-    """Phase 2, the edge inputs of iCRT and of CRT and its variants: each
-    kernel equals its plain version. Returns kernel -> rows."""
-    cases = [("icrt", *c) for c in icrt_edge_cases(torch, np, params, dev)]
+    """Phase 2, the edge inputs of iCRT and of CRT and its variants at
+    every shape of edge_shapes(): each kernel equals its plain version.
+    Returns kernel -> rows."""
+    icrt_shapes, crt_shapes = edge_shapes(params)
+    cases = [("icrt", *c) for c in icrt_edge_cases(torch, np, params, dev,
+                                                   icrt_shapes)]
     rows: dict = {}
-    for name, label, kern, plain in cases + crt_edge_cases(torch, np, params,
-                                                           dev):
+    for name, label, kern, plain in cases + crt_edge_cases(
+            torch, np, params, dev, crt_shapes):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max().item())
@@ -343,10 +485,18 @@ def check_edges(torch, np, params, dev) -> dict:
 
 
 def check_kernels(torch, np, params, dev, flush) -> dict:
-    """Phase 2: every kernel against its plain version, and their times."""
+    """Phase 2: every kernel against its plain version, and their times,
+    at every shape of the top level (variants too), of the levels the
+    circuit path descends to and of keygen. A row's `level` is its logq,
+    or "keygen"."""
     per_kernel = {}
-    for name, shape, kern, plain, nbytes, nmul, floor in kernel_cases(
-            torch, np, params, dev):
+    cases = [(params.logQ, c) for c in kernel_cases(torch, np, params, dev)]
+    for logq in circuit_levels(params):
+        cases += [(logq, c) for c in kernel_cases(torch, np, params, dev,
+                                                  logq, variants=False)]
+    cases += [("keygen", c) for c in keygen_kernel_cases(torch, np, params,
+                                                         dev)]
+    for level, (name, shape, kern, plain, nbytes, nmul, floor) in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max().item())
@@ -354,7 +504,8 @@ def check_kernels(torch, np, params, dev, flush) -> dict:
                 f"{name} {shape}: kernel differs from its plain version "
                 f"(max abs err {err})")
         b_ms, b_by = bound_ms(nbytes, nmul)
-        row = {"shape": shape, "batch": BATCH if "B=" in shape else 1,
+        row = {"shape": shape, "level": level,
+               "batch": BATCH if "B=" in shape else 1,
                "max_abs_err": err,
                "ms": time_ms(torch, kern, 20, flush),
                "plain_ms": time_ms(torch, plain, 3, flush),
@@ -362,7 +513,7 @@ def check_kernels(torch, np, params, dev, flush) -> dict:
                "int32_muls": nmul,
                **({} if floor is None else {"two_pass_bytes": floor})}
         per_kernel.setdefault(name, []).append(row)
-        print(f"kernel {name:13s} {shape:20s} bitwise ok  "
+        print(f"kernel {name:13s} {level!s:6s} {shape:20s} bitwise ok  "
               f"{row['ms']:.4f} ms  plain {row['plain_ms']:.3f} ms  "
               f"bound {b_ms:.4f} ms ({b_by})", flush=True)
     return per_kernel
@@ -444,11 +595,8 @@ def drive_main_path(torch, np, params, dev, common) -> dict:
     sk, pk, evk = keygen(params, seed=0, device=dev)
     c1 = H.encrypt_message(z1, pk, params, seed=11)
     c2 = H.encrypt_message(z2, pk, params, seed=12)
-    before = dict(common.LAUNCHES)
-    c3 = H.he_mul(c1, c2, evk, params)
-    torch.cuda.synchronize()
-    mul_launches = {k: common.LAUNCHES[k] - before[k] for k in before
-                    if common.LAUNCHES[k] - before[k]}
+    c3, mul_launches = launched(torch, common,
+                                lambda: H.he_mul(c1, c2, evk, params))
     c4 = H.rescale(c3, params)
     c5 = H.he_add(c4, H.he_mod_down(c1, params, c4.logq))
     prod = H.decrypt_message(c4, sk, params)
@@ -478,30 +626,18 @@ def drive_main_path(torch, np, params, dev, common) -> dict:
           f"{mul_launches}; kernel he_mul == plain he_mul", flush=True)
     return {"launches": launches, "he_mul_launches": mul_launches,
             "err_mul": err_mul, "err_sum": err_sum, "path_s": path_s,
-            "operands": (c1, c2, evk), "pk": pk}
+            "operands": (c1, c2, evk), "pk": pk, "sk": sk}
 
 
 def drive_batched_step(torch, np, params, dev, common, pk, evk) -> dict:
-    """Phase 4: the batched step on three rungs of the paper's ladder, the
-    main path of this slice."""
-    from repro_torch.core import bigint
+    """Phase 4: the batched HE Mul step on three rungs of the paper's
+    ladder."""
     from repro_torch.core import heaan as H
     from repro_torch.core.context import make_context
     from repro_torch.dist import he_pipeline as hp
 
-    qlimbs = params.qlimbs(params.logQ)
-    rng = np.random.default_rng(8)
-
-    def encrypt(seed):
-        # a random plaintext below Q, encrypted from a seed (encode's
-        # host-side big-integer work would only cost time here)
-        pt = torch.from_numpy(rng.integers(
-            0, 1 << 32, size=(params.N, qlimbs), dtype=np.uint64
-        ).astype(np.uint32).view(np.int32)).to(dev)
-        return H.encrypt_coeffs(bigint.mask_bits(pt, params.logQ), pk,
-                                params, params.N // 2, seed)
-
-    cts = [encrypt(100 + i) for i in range(2 * BATCH)]
+    cts = random_ciphertexts(torch, np, params, pk, dev,
+                             range(100, 100 + 2 * BATCH))
     refs = [H.he_mul(cts[2 * i], cts[2 * i + 1], evk, params)
             for i in range(BATCH)]
     st = hp.he_static(params, params.logQ)
@@ -524,11 +660,8 @@ def drive_batched_step(torch, np, params, dev, common, pk, evk) -> dict:
     t0 = time.perf_counter()
     outs, rung_launches = {}, {}
     for name, step in steps.items():
-        before = dict(common.LAUNCHES)
-        outs[name] = step(*tabs, *args(BATCH))
-        torch.cuda.synchronize()
-        rung_launches[name] = {k: v - before[k] for k, v in
-                               common.LAUNCHES.items() if v - before[k]}
+        outs[name], rung_launches[name] = launched(
+            torch, common, lambda s=step: s(*tabs, *args(BATCH)))
     out3 = steps["default"](*tabs, *args(3))
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
@@ -550,16 +683,8 @@ def drive_batched_step(torch, np, params, dev, common, pk, evk) -> dict:
 
     times = {}
     for name, step in steps.items():
-        step(*tabs, *args(BATCH))                 # warm-up
-        ms = []
-        for _ in range(5):
-            a = args(BATCH)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            step(*tabs, *a)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t1) * 1e3)
-        med = statistics.median(ms)
+        a = args(BATCH)
+        med, ms = median_ms(torch, lambda s=step, a=a: s(*tabs, *a))
         times[name] = {"ms_per_step": med, "ms_per_he_mul": med / BATCH,
                        "ms": ms}
         print(f"batched step {name:14s} B={BATCH}: {med:.2f} ms per step, "
@@ -572,21 +697,242 @@ def drive_batched_step(torch, np, params, dev, common, pk, evk) -> dict:
             "profile_step": lambda: steps["default"](*tabs, *args(BATCH))}
 
 
-def time_he_mul(torch, params, operands, reps: int, use_kernels: bool
-                ) -> list:
+def drive_circuit_path(torch, np, params, dev, common, sk, pk, evk
+                       ) -> dict:
+    """Phase 6: the circuit path at `params` on phase 3's keys.
+
+    Galois keygen (rotations CIRCUIT_ROTATIONS and conjugation); circuit A
+    (the degree-4 demo circuit, N/4 slots), circuit B (the affine layer,
+    AFFINE_SLOTS slots) and circuit C (B's first two nodes, then mod_raise
+    from logQ − logp to logQ) through execute_circuit_reference on the
+    kernels, each with its launches as OP_LAUNCHES derives them, then on
+    the plain path: the words must agree; A and B decrypt within the
+    reference tests' limits. The launch counts are set to 0 just before
+    and read just after the keygen and the circuits' kernel runs. Then
+    each op alone (its launches as derived, its time). Then each batched
+    step of hserve.engine at B = BATCH and logQ (the level ops at their
+    natural targets; rotate on the "mod2+modified" rung too), run once
+    with the counts set to 0 just before and read just after; each must
+    equal the single-ciphertext op on every item and launch what one op
+    does, and is then timed."""
     from repro_torch.core import heaan as H
+    from repro_torch.core import rotate as R
+    from repro_torch.core.context import make_context
     from repro_torch.core.rns import PipelineConfig
-    cfg = PipelineConfig(use_kernels=use_kernels)
-    c1, c2, evk = operands
-    H.he_mul(c1, c2, evk, params, cfg)          # warm-up
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        H.he_mul(c1, c2, evk, params, cfg)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return times
+    from repro_torch.dist import he_pipeline as hp
+    from repro_torch.hserve import circuit as C
+    from repro_torch.hserve import engine as E
+
+    phase_t0 = time.perf_counter()
+    logQ, logp = params.logQ, params.logp
+    logq1 = logQ - logp
+    rng = np.random.default_rng(9)
+    n_a = params.N // 4
+    # drawn as phase 3 draws: real and imaginary parts uniform in [0, 1)
+    z_a = rng.random(n_a) + 1j * rng.random(n_a)
+    z_b, w, b = (rng.random(AFFINE_SLOTS) + 1j * rng.random(AFFINE_SLOTS)
+                 for _ in range(3))
+
+    def same(x, y):
+        return (x.logq, x.logp) == (y.logq, y.logp) and torch.equal(
+            x.ax, y.ax) and torch.equal(x.bx, y.bx)
+
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    mem0 = torch.cuda.memory_allocated()
+    rks = {r: R.rot_keygen(params, sk, r, device=dev)
+           for r in CIRCUIT_ROTATIONS}
+    ck = R.conj_keygen(params, sk, device=dev)
+    torch.cuda.synchronize()
+    key_bytes = torch.cuda.memory_allocated() - mem0
+    keygen_s = time.perf_counter() - t0
+    keys = {"evk": evk, "rot_keys": rks, "conj_key": ck}
+    x_a = H.encrypt_message(z_a, pk, params, seed=31)
+    x_b = H.encrypt_message(z_b, pk, params, seed=32)
+    ops_b = C.affine_demo_circuit(params, w, b, device=dev)
+    circuits = {
+        "A": (C.degree4_demo_circuit(params)[0], x_a),
+        "B": (ops_b, x_b),
+        "C": (ops_b[:2] + [C.CircuitOp("mod_raise", (1,), logq2=logQ)], x_b),
+    }
+    kern, plain = PipelineConfig(use_kernels=True), PipelineConfig(
+        use_kernels=False)
+    outs, circuit_launches, circuit_ms = {}, {}, {}
+    for name, (ops, x) in circuits.items():
+        t1 = time.perf_counter()
+        outs[name], circuit_launches[name] = launched(
+            torch, common, lambda o=ops, x=x: C.execute_circuit_reference(
+                o, {"x": x}, params, **keys, cfg=kern))
+        circuit_ms[name] = (time.perf_counter() - t1) * 1e3
+        _, _, nslots = C.circuit_schedule(ops, {"x": (x.logq, x.logp)},
+                                          {"x": x.n_slots}, params)
+        want = summed(*[
+            scaled(OP_LAUNCHES["rotate"],
+                   len(E.slot_sum_rotations(nslots[i])))
+            if node.op == "slot_sum" else OP_LAUNCHES[node.op]
+            for i, node in enumerate(ops)])
+        require(circuit_launches[name] == want,
+                f"circuit {name} launched {circuit_launches[name]}, "
+                f"expected {want}")
+    path_s = time.perf_counter() - t0
+    launches = dict(common.LAUNCHES)
+    require(all(launches[k] > 0 for k in HE_MUL_LAUNCHES),
+            f"a kernel never launched on the circuit path: {launches}")
+    require(key_bytes < 1.5e9, f"Galois keys take {key_bytes} bytes")
+
+    for name, (ops, x) in circuits.items():
+        ref = C.execute_circuit_reference(ops, {"x": x}, params, **keys,
+                                          cfg=plain)
+        require(same(outs[name], ref),
+                f"circuit {name} through the kernels differs from the "
+                f"plain path")
+        print(f"circuit {name}: kernels == plain path bit for bit; "
+              f"launches {circuit_launches[name]}", flush=True)
+    require(outs["C"].logq == logQ, "circuit C did not end at logQ")
+    got_a = H.decrypt_message(outs["A"], sk, params)
+    got_b = H.decrypt_message(outs["B"], sk, params)
+    want_b = (np.roll(w * z_b + b, -1) - z_b).sum()
+    err = {"A": float(np.abs(got_a - (np.conj(z_a ** 4) + z_a)).max()),
+           "B": float(np.abs(got_b - want_b).max())}
+    # the reference tests' limits: tests/test_hserve.py:498 (degree-4
+    # circuit) and tests/test_rotate.py:60 (slot sum)
+    limits = {"A": 0.3, "B": 1e-2}
+    for name in err:
+        print(f"circuit {name}: max |err| {err[name]:.3e} (limit "
+              f"{limits[name]})", flush=True)
+        require(err[name] < limits[name],
+                f"circuit {name} decrypts {err[name]:.3e} off (limit "
+                f"{limits[name]})")
+
+    # ---- each op alone: launches as derived, time -----------------------
+    x_low = H.he_mod_down(x_b, params, logq1)
+    pt = ops_b[0].pt
+    single = {
+        "rotate": lambda: R.he_rotate(x_b, 1, rks[1], params),
+        "conjugate": lambda: R.he_conjugate(x_b, ck, params),
+        "mul_plain": lambda: H.he_mul_plain(x_b, pt, params,
+                                            pt_logp=logp),
+        "rescale": lambda: H.rescale(x_b, params),
+        "mod_raise": lambda: H.he_mod_raise(x_low, params, logQ),
+        "add": lambda: H.he_add(x_b, x_a),
+    }
+    op_ms, op_launches = {}, {}
+    for op, fn in single.items():
+        _, op_launches[op] = launched(torch, common, fn)
+        require(op_launches[op] == OP_LAUNCHES[op],
+                f"{op} launched {op_launches[op]}, expected "
+                f"{OP_LAUNCHES[op]}")
+        op_ms[op] = median_ms(torch, fn)
+        print(f"op {op:10s} {op_ms[op][0]:.3f} ms (median of 5); launches "
+              f"{op_launches[op]}", flush=True)
+
+    # ---- the batched steps at B = BATCH and logQ -------------------------
+    cts = random_ciphertexts(torch, np, params, pk, dev,
+                             range(200, 200 + 2 * BATCH))
+    pts = [H.encode_plain(rng.random(AFFINE_SLOTS), params, logQ,
+                          device=dev) for _ in range(BATCH)]
+    low = [H.he_mod_down(c, params, logq1) for c in cts[:BATCH]]
+    st, st1 = hp.he_static(params, logQ), hp.he_static(params, logq1)
+    t1, t2, _ = hp.runtime_tables(make_context(params, logQ, dev), evk)
+    tk = {r: hp.evk_tables(k) for r, k in rks.items()}
+    tk["conj"] = hp.evk_tables(ck)
+    ax, bx = (torch.stack([getattr(c, f) for c in cts[:BATCH]])
+              for f in ("ax", "bx"))
+    ax2, bx2 = (torch.stack([getattr(c, f) for c in cts[BATCH:]])
+                for f in ("ax", "bx"))
+    ptb = torch.stack(pts)
+    lax, lbx = (torch.stack([getattr(c, f) for c in low])
+                for f in ("ax", "bx"))
+    ss = E.slot_sum_rotations(AFFINE_SLOTS)
+    on = {"use_kernels": True}
+    mod2 = {"use_kernels": True, "crt_strategy": "mod2",
+            "modified_shoup": True}
+
+    def slot_sum(c):
+        for r in ss:
+            c = H.he_add(c, R.he_rotate(c, r, rks[r], params))
+        return c
+
+    steps = {
+        "rotate": (E.make_he_rotate_step(st, dev, R.rotation_k(params, 1),
+                                         **on),
+                   (t2, tk[1], ax, bx),
+                   lambda i: R.he_rotate(cts[i], 1, rks[1], params),
+                   GALOIS_LAUNCHES),
+        "rotate mod2+modified": (
+            E.make_he_rotate_step(st, dev, R.rotation_k(params, 1), **mod2),
+            (t2, tk[1], ax, bx),
+            lambda i: R.he_rotate(cts[i], 1, rks[1], params),
+            {"crt_mod2": 1, "ntt_modified": 1, "intt_modified": 2,
+             "icrt": 2}),
+        "conjugate": (E.make_he_rotate_step(st, dev, R.conjugation_k(params),
+                                            **on),
+                      (t2, tk["conj"], ax, bx),
+                      lambda i: R.he_conjugate(cts[i], ck, params),
+                      GALOIS_LAUNCHES),
+        "slot_sum": (E.make_slot_sum_step(st, dev, AFFINE_SLOTS, **on),
+                     (t2, tuple(tk[r] for r in ss), ax, bx),
+                     lambda i: slot_sum(cts[i]),
+                     scaled(GALOIS_LAUNCHES, len(ss))),
+        "rescale": (E.make_rescale_step(st, dev, logp, **on), (ax, bx),
+                    lambda i: H.rescale(cts[i], params), {}),
+        "mod_down": (E.make_mod_down_step(st, dev, logq1, **on), (ax, bx),
+                     lambda i: H.he_mod_down(cts[i], params, logq1), {}),
+        "mod_raise": (E.make_mod_raise_step(st1, dev, logQ, **on),
+                      (lax, lbx),
+                      lambda i: H.he_mod_raise(low[i], params, logQ), {}),
+        "add": (E.make_addsub_step(st, dev, "add", **on), (ax, bx, ax2, bx2),
+                lambda i: H.he_add(cts[i], cts[BATCH + i]), {}),
+        "sub": (E.make_addsub_step(st, dev, "sub", **on), (ax, bx, ax2, bx2),
+                lambda i: H.he_sub(cts[i], cts[BATCH + i]), {}),
+        "mul_plain": (E.make_mul_plain_step(st, dev, **on),
+                      (t1, ax, bx, ptb),
+                      lambda i: H.he_mul_plain(cts[i], pts[i], params),
+                      OP_LAUNCHES["mul_plain"]),
+        "add_plain": (E.make_add_plain_step(st, dev, **on), (ax, bx, ptb),
+                      lambda i: H.he_add_plain(cts[i], pts[i], params), {}),
+    }
+    torch.cuda.synchronize()
+    common.reset_launches()
+    step_outs, step_launches = {}, {}
+    for name, (step, args, _, _) in steps.items():
+        step_outs[name], step_launches[name] = launched(
+            torch, common, lambda s=step, a=args: s(*a))
+    steps_path_launches = dict(common.LAUNCHES)
+    require(all(steps_path_launches[k] > 0
+                for k in summed(*(want for *_, want in steps.values()))),
+            f"a kernel or variant of the per-op steps never launched: "
+            f"{steps_path_launches}")
+    step_ms = {}
+    for name, (step, args, ref, want) in steps.items():
+        out = step_outs[name]
+        require(step_launches[name] == want,
+                f"step {name} launched {step_launches[name]}, expected "
+                f"{want}")
+        for i in range(BATCH):
+            r = ref(i)
+            require(torch.equal(out[0][i], r.ax)
+                    and torch.equal(out[1][i], r.bx),
+                    f"step {name}: item {i} differs from the "
+                    f"single-ciphertext op")
+        med, ms = median_ms(torch, lambda s=step, a=args: s(*a))
+        step_ms[name] = {"ms_per_step": med, "ms_per_ct": med / BATCH,
+                         "ms": ms}
+        print(f"step {name:20s} B={BATCH}: {med:.3f} ms per step, "
+              f"{med / BATCH:.3f} ms per ciphertext; == single op per item; "
+              f"launches {step_launches[name]}", flush=True)
+    return {"phase_s": time.perf_counter() - phase_t0,
+            "launches": launches, "steps_launches": steps_path_launches,
+            "circuit_launches": circuit_launches,
+            "circuit_ms": circuit_ms, "path_s": path_s,
+            "keygen_s": keygen_s, "key_bytes": key_bytes,
+            "err": err, "limits": limits,
+            "op_ms": {k: {"median": v[0], "ms": v[1]}
+                      for k, v in op_ms.items()},
+            "op_launches": op_launches, "step_ms": step_ms,
+            "step_launches": step_launches,
+            "profile_rotate": lambda: R.he_rotate(x_b, 1, rks[1], params)}
 
 
 def profile(torch, fn) -> dict:
@@ -636,6 +982,7 @@ def main() -> int:
     import numpy as np
     from repro_torch.core import heaan as H
     from repro_torch.core.params import paper_params
+    from repro_torch.core.rns import PipelineConfig
     from repro_torch.kernels import common
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -666,8 +1013,12 @@ def main() -> int:
     c1, c2, evk = path["operands"]
     batched = drive_batched_step(torch, np, params, dev, common, path["pk"],
                                  evk)
-    mul_ms = time_he_mul(torch, params, path["operands"], 5, True)
-    plain_ms = time_he_mul(torch, params, path["operands"], 2, False)
+    mul_ms = median_ms(torch, lambda: H.he_mul(c1, c2, evk, params), 5)[1]
+    plain = PipelineConfig(use_kernels=False)
+    plain_ms = median_ms(
+        torch, lambda: H.he_mul(c1, c2, evk, params, plain), 2)[1]
+    circuit = drive_circuit_path(torch, np, params, dev, common, path["sk"],
+                                 path["pk"], evk)
     per_he_mul = {key: sum(n * r[key] for k, counts in
                            HE_MUL_SHAPE_LAUNCHES.items()
                            for n, r in zip(counts, per_kernel[k]))
@@ -683,11 +1034,15 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/{src}", "replaces": tpu,
-            # on both main paths: phase 3 (one HE Mul and its neighbours)
-            # and phase 4 (the batched step's rungs)
-            "launches": path["launches"][name] + batched["launches"][name],
+            # on every path: phase 3 (one HE Mul and its neighbours),
+            # phase 4 (the batched step's rungs), phase 6 (Galois keygen
+            # and the circuits; the batched per-op steps)
+            "launches": path["launches"][name] + batched["launches"][name]
+            + circuit["launches"][name] + circuit["steps_launches"][name],
             "main_path_launches": path["launches"][name],
             "batched_step_launches": batched["launches"][name],
+            "circuit_path_launches": circuit["launches"][name],
+            "per_op_steps_launches": circuit["steps_launches"][name],
             "he_mul_launches": path["he_mul_launches"].get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                + edges.get(name, [])),
@@ -723,6 +1078,20 @@ def main() -> int:
         torch, lambda: H.he_mul(c1, c2, evk, params))}))
     print(json.dumps({"batched_step_profile": profile(
         torch, batched["profile_step"])}))
+    rot = profile(torch, circuit["profile_rotate"])
+    rot["glue_ms"] = rot["device_ms"] - rot["port_kernel_ms"]
+    print(f"one he_rotate under torch.profiler: {rot['device_ms']:.3f} ms "
+          f"of device time in {rot['device_events']} events, the port's "
+          f"kernels {rot['port_kernel_ms']:.3f} ms in "
+          f"{rot['port_kernel_launches']} launches, the glue "
+          f"{rot['glue_ms']:.3f} ms; wall {rot['wall_ms']:.3f} ms; phase 6 "
+          f"took {circuit['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"circuit_path": {
+        "params": "paper_params(): logN=16 logQ=1200 beta=2^32",
+        "batch": BATCH, **{k: v for k, v in circuit.items()
+                           if k != "profile_rotate"},
+        "he_rotate_profile": rot, "card": card}}))
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

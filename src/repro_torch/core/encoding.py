@@ -14,11 +14,30 @@ Conventions follow the reference HEAAN (Ring::EMB / EMBInv, Scheme::encode):
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 
 from repro_torch.core.params import HEParams
 
-__all__ = ["encode", "decode", "emb", "emb_inv"]
+__all__ = ["encode", "decode", "emb", "emb_inv", "message_hash"]
+
+
+def message_hash(z: np.ndarray, log_delta: int) -> str:
+    """Content hash of a slot message at an encoding scale.
+
+    Two messages share a hash exactly when :func:`encode` would produce
+    the same plaintext polynomial for them (same slot values, same scale
+    2^log_delta), so ``(message_hash(z, Δ), logq)`` is a sound key for
+    caching an encoded mul_plain/add_plain operand. It is the JAX
+    package's hash, string for string, so caches of both key alike.
+    Modulus and parameter set are not part of the hash.
+    """
+    z = np.ascontiguousarray(np.asarray(z, dtype=np.complex128))
+    h = hashlib.sha256()
+    h.update(f"{z.shape}|{int(log_delta)}|".encode())
+    h.update(z.tobytes())
+    return h.hexdigest()[:20]
 
 
 def _bit_reverse_inplace(vals: np.ndarray) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""HEAAN scheme operations: encrypt / decrypt / HE Add / HE Mul / rescale.
+"""HEAAN scheme operations: encrypt / decrypt / HE Add / HE Mul / rescale,
+the plaintext-operand ops and the level ops (mod-down, mod-raise).
 
 HE Mul is the paper's Fig. 2 pipeline:
 
@@ -27,7 +28,9 @@ import torch
 from repro_torch.core import bigint
 from repro_torch.core import rns
 from repro_torch.core.cipher import Ciphertext, EvalKey, PublicKey, SecretKey
-from repro_torch.core.context import device_tables, make_context
+from repro_torch.core.context import (
+    device_tables, make_context, resolve_device,
+)
 from repro_torch.core.encoding import decode, encode
 from repro_torch.core.keys import sample_gauss, sample_zo
 from repro_torch.core.params import HEParams
@@ -37,8 +40,9 @@ from repro_torch.nt.residue import ints_to_limb_array
 
 __all__ = [
     "encrypt_coeffs", "encrypt_message", "decrypt_coeffs", "decrypt_message",
-    "he_add", "he_mul", "rescale", "rescale_poly", "he_mod_down",
-    "mod_down_poly",
+    "he_add", "he_sub", "he_neg", "he_mul", "rescale", "rescale_poly",
+    "he_mod_down", "mod_down_poly", "he_mod_raise", "mod_raise_poly",
+    "he_mul_plain", "he_add_plain", "encode_plain",
 ]
 
 
@@ -83,11 +87,7 @@ def encrypt_message(z: np.ndarray, pk: PublicKey, params: HEParams,
                     seed: int = 1, cfg: PipelineConfig = DEFAULT
                     ) -> Ciphertext:
     """Encode a complex message and encrypt it on pk's device."""
-    coeffs = encode(z, params)
-    q = 1 << params.logQ
-    enc = ints_to_limb_array([int(c) % q for c in coeffs],
-                             params.qlimbs(params.logQ), 32)
-    pt = torch.from_numpy(enc.view(np.int32)).to(pk.ax.device)
+    pt = encode_plain(z, params, params.logQ, device=pk.ax.device)
     return encrypt_coeffs(pt, pk, params, len(z), seed, cfg)
 
 
@@ -115,7 +115,7 @@ def decrypt_message(ct: Ciphertext, sk: SecretKey, params: HEParams,
 
 
 # --------------------------------------------------------------------------
-# HE Add (paper §III-B: limb adds + mask — q is a power of two)
+# HE Add / Sub / Neg (paper §III-B: limb adds + mask — q is a power of two)
 # --------------------------------------------------------------------------
 
 def he_add(c1: Ciphertext, c2: Ciphertext) -> Ciphertext:
@@ -124,6 +124,20 @@ def he_add(c1: Ciphertext, c2: Ciphertext) -> Ciphertext:
         ax=bigint.mask_bits(bigint.add(c1.ax, c2.ax), c1.logq),
         bx=bigint.mask_bits(bigint.add(c1.bx, c2.bx), c1.logq),
         logq=c1.logq, logp=c1.logp, n_slots=c1.n_slots)
+
+
+def he_sub(c1: Ciphertext, c2: Ciphertext) -> Ciphertext:
+    assert c1.logq == c2.logq and c1.logp == c2.logp
+    return Ciphertext(
+        ax=bigint.mask_bits(bigint.sub(c1.ax, c2.ax), c1.logq),
+        bx=bigint.mask_bits(bigint.sub(c1.bx, c2.bx), c1.logq),
+        logq=c1.logq, logp=c1.logp, n_slots=c1.n_slots)
+
+
+def he_neg(c: Ciphertext) -> Ciphertext:
+    return Ciphertext(ax=bigint.mask_bits(bigint.neg(c.ax), c.logq),
+                      bx=bigint.mask_bits(bigint.neg(c.bx), c.logq),
+                      logq=c.logq, logp=c.logp, n_slots=c.n_slots)
 
 
 # --------------------------------------------------------------------------
@@ -179,6 +193,52 @@ def he_mul(c1: Ciphertext, c2: Ciphertext, evk: EvalKey, params: HEParams,
                       logp=c1.logp + c2.logp, n_slots=c1.n_slots)
 
 
+def encode_plain(z: np.ndarray, params: HEParams, logq: int,
+                 log_delta: int | None = None,
+                 device: str | torch.device = "cuda") -> torch.Tensor:
+    """Encode a message into (N, qlimbs) mod-q plaintext words on `device`
+    (for the plain-ct ops)."""
+    coeffs = encode(z, params, log_delta=log_delta)
+    q = 1 << logq
+    enc = ints_to_limb_array([int(c) % q for c in coeffs],
+                             params.qlimbs(logq), 32)
+    return torch.from_numpy(enc.view(np.int32)).to(resolve_device(device))
+
+
+def he_mul_plain(ct: Ciphertext, pt_limbs: torch.Tensor, params: HEParams,
+                 pt_logp: int | None = None,
+                 cfg: PipelineConfig = DEFAULT) -> Ciphertext:
+    """Ciphertext × plaintext (no key switching — cheap, paper Fig. 2's
+    region 1 only). pt is an encoded polynomial at scale 2^pt_logp."""
+    g = device_tables(params, ct.ax.device)
+    logq = ct.logq
+    qlimbs = params.qlimbs(logq)
+    pt_logp = params.log_delta if pt_logp is None else pt_logp
+    npn = params.np_for_bits(params.primes, 2 * logq + params.logN + 2)
+    pt_ev = rns.to_eval(pt_limbs[:, :qlimbs].contiguous(), npn, g, cfg)
+
+    def mul_poly(poly):
+        prod = rns.eval_mul(
+            rns.to_eval(poly[:, :qlimbs].contiguous(), npn, g, cfg), pt_ev,
+            g, cfg)
+        return bigint.mask_bits(
+            rns.from_eval(prod, params, qlimbs, g, cfg), logq)
+
+    return Ciphertext(ax=mul_poly(ct.ax), bx=mul_poly(ct.bx), logq=logq,
+                      logp=ct.logp + pt_logp, n_slots=ct.n_slots)
+
+
+def he_add_plain(ct: Ciphertext, pt_limbs: torch.Tensor, params: HEParams
+                 ) -> Ciphertext:
+    """Ciphertext + plaintext (added to bx; scales must match)."""
+    qlimbs = params.qlimbs(ct.logq)
+    return Ciphertext(
+        ax=ct.ax,
+        bx=bigint.mask_bits(
+            bigint.add(ct.bx[:, :qlimbs], pt_limbs[:, :qlimbs]), ct.logq),
+        logq=ct.logq, logp=ct.logp, n_slots=ct.n_slots)
+
+
 def mod_down_poly(poly: torch.Tensor, params: HEParams, logq2: int
                   ) -> torch.Tensor:
     """Mask a mod-q limb polynomial down to modulus 2^logq2 and drop the
@@ -199,27 +259,68 @@ def he_mod_down(ct: Ciphertext, params: HEParams, logq2: int) -> Ciphertext:
         logq=logq2, logp=ct.logp, n_slots=ct.n_slots)
 
 
+def _center(x: torch.Tensor, logq: int) -> torch.Tensor:
+    """The mod-q lift of int64 limbs (..., L) sign-extended above bit
+    logq − 1 across all L limbs. Indexing is on the trailing limb axis
+    only, so leading batch axes pass through."""
+    sign = ((x[..., (logq - 1) // 32] >> ((logq - 1) % 32)) & 1).bool()
+    w, r = divmod(logq, 32)
+    limb_sel = torch.arange(x.shape[-1], device=x.device) >= (
+        w + (1 if r else 0))
+    lifted = torch.where(limb_sel & sign[..., None], M32,
+                         torch.where(limb_sel, 0, x))
+    if r:
+        lifted[..., w] = x[..., w] | torch.where(
+            sign, (M32 << r) & M32, 0)
+    return lifted
+
+
+def mod_raise_poly(poly: torch.Tensor, params: HEParams, logq: int,
+                   logq2: int) -> torch.Tensor:
+    """Lift a mod-q limb polynomial into the larger modulus 2^logq2.
+
+    The coefficient is zero-padded to qlimbs(logq2) limbs, centered
+    (sign-extended above bit logq−1 from its mod-q lift) and re-masked at
+    logq2 — the bootstrap mod-raise: the decrypted value becomes
+    t + q·I(X) for small I. Leading batch axes pass through, so the
+    batched step of :mod:`repro_torch.hserve.engine` shares this code.
+    """
+    assert 0 < logq < logq2 <= params.logQ
+    L2 = params.qlimbs(logq2)
+    x = wide(poly)
+    pad = L2 - x.shape[-1]
+    if pad > 0:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], -1)
+    else:
+        x = x[..., :L2]
+    return bigint.mask_bits(narrow(_center(x, logq)), logq2)
+
+
+def he_mod_raise(ct: Ciphertext, params: HEParams, logq2: int
+                 ) -> Ciphertext:
+    """Raise to a larger modulus q' = 2^logq2 > q (bootstrap step 1).
+
+    The scale is untouched; the underlying plaintext gains a q·I(X)
+    error term (|I| small) that a bootstrap's EvalMod stage removes.
+    """
+    assert ct.logq < logq2 <= params.logQ
+    return Ciphertext(
+        ax=mod_raise_poly(ct.ax, params, ct.logq, logq2),
+        bx=mod_raise_poly(ct.bx, params, ct.logq, logq2),
+        logq=logq2, logp=ct.logp, n_slots=ct.n_slots)
+
+
 def rescale_poly(poly: torch.Tensor, params: HEParams, logq: int,
                  dlogp: int) -> torch.Tensor:
     """Rounding-divide a mod-q limb polynomial by 2^dlogp (paper §III-A).
 
     The coefficient is centered (sign-extended above bit logq−1 from its
     mod-q lift), rounding-shifted right by dlogp, and re-masked at
-    logq' = logq − dlogp.
+    logq' = logq − dlogp. Leading batch axes pass through.
     """
     logq2 = logq - dlogp
     assert logq2 > 0, "ciphertext exhausted (needs bootstrapping)"
-    x = wide(poly)
-    L = x.shape[-1]
-    sign = ((x[..., (logq - 1) // 32] >> ((logq - 1) % 32)) & 1).bool()
-    w, r = divmod(logq, 32)
-    limb_sel = torch.arange(L, device=x.device) >= (w + (1 if r else 0))
-    lifted = torch.where(limb_sel & sign[..., None], M32,
-                         torch.where(limb_sel, 0, x))
-    if r:
-        lifted[..., w] = x[..., w] | torch.where(
-            sign, (M32 << r) & M32, 0)
-    out = bigint.shift_right_round(narrow(lifted), dlogp)
+    out = bigint.shift_right_round(narrow(_center(wide(poly), logq)), dlogp)
     return bigint.mask_bits(out, logq2)[..., :max(params.qlimbs(logq2), 1)]
 
 

@@ -44,7 +44,7 @@ from repro_torch.nt.residue import limbs_to_int
 
 __all__ = ["PipelineConfig", "DEFAULT", "to_eval", "to_eval_small",
            "from_eval", "eval_mul", "eval_add", "eval_sub", "eval_mul_shoup",
-           "small_ints_to_limbs", "limbs_to_centered_ints"]
+           "poly_mul", "small_ints_to_limbs", "limbs_to_centered_ints"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +126,21 @@ def eval_add(a, b, g: GlobalTables):
 def eval_sub(a, b, g: GlobalTables):
     p = wide(g.primes[:a.shape[0]])[:, None]
     return narrow(modsub(wide(a), wide(b), p))
+
+
+def poly_mul(x: torch.Tensor, y: torch.Tensor, x_bits: int, y_bits: int,
+             params: HEParams, g: GlobalTables, out_limbs: int,
+             cfg: PipelineConfig = DEFAULT) -> torch.Tensor:
+    """General negacyclic poly product of two canonical limb polys.
+
+    Chooses np from the exact coefficient bound |c| < N·2^(x_bits+y_bits).
+    Returns centered two's complement at out_limbs.
+    """
+    npn = params.np_for_bits(
+        params.primes, x_bits + y_bits + params.logN + 2)
+    ex = to_eval(x, npn, g, cfg)
+    ey = to_eval(y, npn, g, cfg)
+    return from_eval(eval_mul(ex, ey, g, cfg), params, out_limbs, g, cfg)
 
 
 # ---- host/limb conversions -------------------------------------------------

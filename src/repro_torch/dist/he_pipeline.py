@@ -72,8 +72,8 @@ from repro_torch.kernels.ntt.ops import intt_op, ntt_op
 
 __all__ = [
     "HEStatic", "he_static", "region_tables", "evk_tables",
-    "runtime_tables", "StageFns", "make_stage_fns", "make_keyswitch_step",
-    "make_he_mul_step",
+    "runtime_tables", "StageFns", "make_stage_fns", "check_operands",
+    "make_keyswitch_step", "make_he_mul_step",
 ]
 
 # Keys of a region-table dict, in the order region_tables emits them (the
@@ -145,8 +145,10 @@ def region_tables(ctx: HEContext, region: int) -> Dict[str, torch.Tensor]:
         "n_inv_shoup": g.n_inv_shoup[:npn],
         "pprime": g.pprime[:npn],
         "r2": g.r2[:npn],
-        "crt_tb": g.crt_tb[:npn, :K].contiguous(),
-        "crt_tb_shoup": g.crt_tb_shoup[:npn, :K].contiguous(),
+        # the CRT fold reads β^k for k < 3, so a level of fewer than 3
+        # limbs still takes 3 columns (as rns.to_eval does)
+        "crt_tb": g.crt_tb[:npn, :max(K, 3)].contiguous(),
+        "crt_tb_shoup": g.crt_tb_shoup[:npn, :max(K, 3)].contiguous(),
         "inv_P": tabs.inv_P,
         "inv_P_shoup": tabs.inv_P_shoup,
         "pdivp": tabs.pdivp,
@@ -299,6 +301,17 @@ def make_stage_fns(device: str | torch.device = "cuda", *,
                     shoup_mul=shoup_mul, device=dev)
 
 
+def check_operands(st: HEStatic, device: torch.device,
+                   *xs: torch.Tensor) -> None:
+    """Refuse a step's operands unless each is (B, N, qlimbs) on
+    `device`."""
+    for x in xs:
+        if x.device != device or x.shape[1:] != (st.N, st.qlimbs):
+            raise ValueError(
+                f"operands must be (B, {st.N}, {st.qlimbs}) on {device}; "
+                f"got {tuple(x.shape)} on {x.device}")
+
+
 def make_keyswitch_step(st: HEStatic, sf: StageFns):
     """Region-2 key switch: ks(t2, ek, d) -> (ks_ax, ks_bx) at qlimbs.
 
@@ -344,11 +357,7 @@ def make_he_mul_step(st: HEStatic, device: str | torch.device = "cuda", *,
     keyswitch = make_keyswitch_step(st, sf)
 
     def step(t1, t2, ek, ax1, bx1, ax2, bx2):
-        for x in (ax1, bx1, ax2, bx2):
-            if x.device != sf.device or x.shape[1:] != (st.N, qlimbs):
-                raise ValueError(
-                    f"operands must be (B, {st.N}, {qlimbs}) on "
-                    f"{sf.device}; got {tuple(x.shape)} on {x.device}")
+        check_operands(st, sf.device, ax1, bx1, ax2, bx2)
         p1 = wide(t1["primes"])[:, None]
         # ---- region 1: 4×(CRT→NTT), 3 pointwise, 3×(iNTT→iCRT) ----------
         ea1 = sf.to_eval(ax1, t1)

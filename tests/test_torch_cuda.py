@@ -327,3 +327,145 @@ def _check_batched_step(dev, p, B):
                 st, dev, crt_strategy="acc3", icrt_strategy="acc3")(*tabs,
                                                                     *args)
             assert torch.equal(pax, ax3) and torch.equal(pbx, bx3)
+
+
+@pytest.mark.parametrize("name", ["A", "B"])
+def test_cuda_circuits_equal_plain_path(dev, name):
+    """Circuit A (the degree-4 demo circuit) and circuit B (the affine
+    layer: mul_plain, rescale, add_plain, rotate, sub, slot_sum) at
+    test_params() through the kernels give the plain path's words and
+    decrypt within tests/test_hserve.py's 0.3 and test_rotate.py's 1e-2."""
+    from repro_torch.core.rotate import conj_keygen, rot_keygen
+    from repro_torch.hserve import circuit as C
+    p = small_params()
+    sk, pk, evk = keygen(p, seed=3, device=dev)
+    keys = {"evk": evk, "conj_key": conj_keygen(p, sk, device=dev),
+            "rot_keys": {r: rot_keygen(p, sk, r, device=dev)
+                         for r in (1, 2, 4)}}
+    rng = np.random.default_rng(5)
+    z, w, b = (rng.random(8) + 1j * rng.random(8) for _ in range(3))
+    x = H.encrypt_message(z, pk, p, seed=6)
+    if name == "A":
+        ops, want, limit = (C.degree4_demo_circuit(p)[0],
+                            np.conj(z ** 4) + z, 0.3)
+    else:
+        ops, want, limit = (C.affine_demo_circuit(p, w, b, device=dev),
+                            (np.roll(w * z + b, -1) - z).sum(), 1e-2)
+    got = C.execute_circuit_reference(ops, {"x": x}, p, **keys)
+    ref = C.execute_circuit_reference(ops, {"x": x}, p, **keys,
+                                      cfg=PipelineConfig(use_kernels=False))
+    assert torch.equal(got.ax, ref.ax) and torch.equal(got.bx, ref.bx)
+    assert np.abs(H.decrypt_message(got, sk, p) - want).max() < limit
+
+
+@pytest.mark.parametrize("case", ["rotate", "rotate mod2+modified",
+                                  "conjugate", "conjugate at 2 limbs",
+                                  "slot_sum", "mul_plain", "rescale",
+                                  "mod_down", "mod_raise", "add", "sub",
+                                  "add_plain"])
+def test_cuda_per_op_steps_equal_plain_runs(dev, case):
+    """Each batched step of hserve.engine at B = 3 and test_params()
+    through the kernels gives its plain run's words and the single op's on
+    every item; the conjugate at 2 limbs takes CRT below 3 limbs."""
+    from repro_torch.core import rotate as R
+    from repro_torch.dist import he_pipeline as hp
+    from repro_torch.hserve import engine as E
+    p = small_params()
+    B, low = 3, p.logQ - 3 * p.logp
+    sk, pk, evk = keygen(p, seed=3, device=dev)
+    rks = {r: R.rot_keygen(p, sk, r, device=dev) for r in (1, 2)}
+    ck = R.conj_keygen(p, sk, device=dev)
+    rng = np.random.default_rng(7)
+    logq = {"conjugate at 2 limbs": low,
+            "mod_raise": p.logQ - p.logp}.get(case, p.logQ)
+    cts = [H.he_mod_down(H.encrypt_message(rng.random(4) + 0j, pk, p,
+                                           seed=20 + i), p, logq)
+           for i in range(2 * B)]
+    pts = [H.encode_plain(rng.random(4), p, logq, device=dev)
+           for _ in range(B)]
+    st = hp.he_static(p, logq)
+    t1, t2, _ = hp.runtime_tables(make_context(p, logq, dev), evk)
+    ax, bx, ax2, bx2 = (torch.stack([getattr(c, f) for c in part])
+                        for part in (cts[:B], cts[B:]) for f in ("ax", "bx"))
+    pt = torch.stack(pts)
+    rot = R.rotation_k(p, 1)
+
+    def slot_sum(c):
+        for r in (1, 2):
+            c = H.he_add(c, R.he_rotate(c, r, rks[r], p))
+        return c
+
+    cases = {
+        "rotate": (lambda kw: E.make_he_rotate_step(st, dev, rot, **kw),
+                   (t2, hp.evk_tables(rks[1]), ax, bx),
+                   lambda i: R.he_rotate(cts[i], 1, rks[1], p)),
+        "conjugate": (lambda kw: E.make_he_rotate_step(
+            st, dev, R.conjugation_k(p), **kw),
+            (t2, hp.evk_tables(ck), ax, bx),
+            lambda i: R.he_conjugate(cts[i], ck, p)),
+        "slot_sum": (lambda kw: E.make_slot_sum_step(st, dev, 4, **kw),
+                     (t2, (hp.evk_tables(rks[1]), hp.evk_tables(rks[2])),
+                      ax, bx),
+                     lambda i: slot_sum(cts[i])),
+        "mul_plain": (lambda kw: E.make_mul_plain_step(st, dev, **kw),
+                      (t1, ax, bx, pt),
+                      lambda i: H.he_mul_plain(cts[i], pts[i], p)),
+        "rescale": (lambda kw: E.make_rescale_step(st, dev, p.logp, **kw),
+                    (ax, bx), lambda i: H.rescale(cts[i], p)),
+        "mod_down": (lambda kw: E.make_mod_down_step(st, dev, 76, **kw),
+                     (ax, bx), lambda i: H.he_mod_down(cts[i], p, 76)),
+        "mod_raise": (lambda kw: E.make_mod_raise_step(st, dev, p.logQ,
+                                                       **kw),
+                      (ax, bx), lambda i: H.he_mod_raise(cts[i], p, p.logQ)),
+        "add": (lambda kw: E.make_addsub_step(st, dev, "add", **kw),
+                (ax, bx, ax2, bx2), lambda i: H.he_add(cts[i], cts[B + i])),
+        "sub": (lambda kw: E.make_addsub_step(st, dev, "sub", **kw),
+                (ax, bx, ax2, bx2), lambda i: H.he_sub(cts[i], cts[B + i])),
+        "add_plain": (lambda kw: E.make_add_plain_step(st, dev, **kw),
+                      (ax, bx, pt),
+                      lambda i: H.he_add_plain(cts[i], pts[i], p)),
+    }
+    make, args, ref = cases[case.split(" ")[0]]
+    knobs = ({"crt_strategy": "mod2", "modified_shoup": True}
+             if "mod2" in case else {})
+    got = make({"use_kernels": True, **knobs})(*args)
+    plain = make({"use_kernels": False, **knobs})(*args)
+    for i in range(B):
+        r = ref(i)
+        assert torch.equal(got[0][i], r.ax) and torch.equal(got[1][i], r.bx)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+
+
+@pytest.mark.parametrize("logq", [1170, 1140, 1110, "keygen"])
+def test_cuda_crt_icrt_at_lower_level_paper_shapes(dev, logq):
+    """CRT (every strategy) and iCRT at the paper-param shapes of the
+    levels a circuit descends to, and of Galois keygen, equal their plain
+    versions on 2.5 blocks of coefficients (CRT K 37–35 into np₁ 79–75
+    and np₂ 121–119, iCRT back to K and to 76–74 limbs; keygen: K 75 into
+    np 81 and 122, iCRT np 81 → 75)."""
+    from repro_torch.core.context import device_icrt_tables, device_tables
+    p = paper_params()
+    g = device_tables(p, dev)
+    if logq == "keygen":
+        q2 = p.limbs_for_bits(2 * p.logQ)
+        np_kk = p.np_for_bits(p.primes, 2 * p.logQ + p.logN + 3)
+        crt_shapes = [(q2, np_kk), (q2, p.np_region2(p.logQ))]
+        icrt_shapes = [(np_kk, q2)]
+    else:
+        K, np1, np2 = p.qlimbs(logq), p.np_region1(logq), p.np_region2(logq)
+        ks = p.limbs_for_bits(logq + p.logQ) + 1
+        crt_shapes, icrt_shapes = [(K, np1), (K, np2)], [(np1, K), (np2, ks)]
+    rng = np.random.default_rng(int(np.sum([k * n for k, n in crt_shapes])))
+    n = 5 * CRT_BLOCK // 2
+    primes = g.primes.cpu().numpy().view(np.uint32)
+    for K, npn in crt_shapes:
+        x = _t(rng.integers(0, 1 << 32, size=(n, K), dtype=np.uint64), dev)
+        tabs = (g.crt_tb[:npn, :K].contiguous(),
+                g.crt_tb_shoup[:npn, :K].contiguous(), g.primes[:npn])
+        for strategy in ("acc3", "mod2", "mod4"):
+            assert torch.equal(crt_op(x, *tabs, strategy=strategy),
+                               crt_ref(x, *tabs, strategy=strategy))
+    for npn, out in icrt_shapes:
+        t = icrt_inputs(device_icrt_tables(p, npn, dev), g)
+        r = _t(_residues(primes, npn, 5 * BLOCK // 2, npn), dev)
+        assert torch.equal(icrt_op(r, t, out), icrt_ref(r, t, out))
