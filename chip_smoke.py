@@ -61,13 +61,34 @@ Phases; any failure exits non-zero and prints no result:
    (launches, median of 5) and each batched step of ``hserve.engine`` at
    B = 4 (equal to the single op on every item, launching what one op
    does; median of 5), and a torch.profiler split of one he_rotate.
+7. Serving (``repro_torch.hserve.HEServer``) at ``paper_params()`` on phase
+   3's keys and phase 6's Galois keys, batch 4, the circuit-aware
+   scheduler on: a stream of SERVE_REQUESTS requests over logq 1200, 1170
+   and 1140 (mul; mul_plain and add_plain, a quarter of the mul share,
+   one plaintext registered by hash and reused; rotate(1) and conjugate),
+   two staggered degree-4 circuits and one circuit B. The launch counts
+   are set to 0 just before the stream and read just after its drain;
+   every kernel must have launched. Every result must equal the
+   single-ciphertext op on the kernels and every circuit
+   ``execute_circuit_reference``, bit for bit, and decrypt within phase
+   6's limits (muls, rescaled, within 1e-2). Then the stream is served in
+   turns without and with ``overlap`` (off, on, on, off), each equal to
+   the first bit for bit with nothing left queued, with
+   ``torch.cuda.set_sync_debug_mode("error")`` around every dispatch (a
+   step that synchronizes the host fails the phase), and timed: drain
+   wall, results and ops per second, per-op p50/p99 latency and ms per
+   batch, flush causes, co-batching, cache hits. Then 4 mul batches and a
+   rotate batch with ``profile_stages=True``: the Fig. 3 split and the
+   four stages' coverage of the op's metered wall (printed, not gated).
+   Last, ``launch.serve.serve_he`` at its SMOKE parameters on the card.
 
 Before the last line it prints the nvidia-smi line, one JSON line of
 per-kernel numbers (``{"kernels": [...]}``: the headline times are those
 of ``headline_shape``, HE Mul's region 1 for a kernel and the batched
 step's first shape for a variant; every shape is under ``shapes``) and JSON
 lines for HE Mul's times, the batched step's and their traces;
-the circuit path's JSON line and the nvidia-smi line again; the last line
+the circuit path's JSON line, the serving JSON line
+(``{"serving": {...}}``) and the nvidia-smi line again; the last line
 is ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -125,6 +146,14 @@ OP_LAUNCHES = {
     **{op: {} for op in ("add", "sub", "rescale", "mod_down", "mod_raise",
                          "add_plain")},
 }
+# Phase 7, serving: the stream's shape (serve_he's, at paper_params()) and
+# the kernels a served stream launches (the default variants)
+SERVE_BATCH = 4
+SERVE_LEVELS = 3
+SERVE_REQUESTS = 24
+SERVE_ROTATIONS, SERVE_CONJUGATIONS = 4, 2
+SERVE_PLAIN_FRAC = 0.25
+SERVE_KERNELS = ("modmul", "ntt", "intt", "crt", "icrt")
 SOURCES = {
     "modmul": ("kernels/csrc/modmul.cu",
                "src/repro/kernels/modmul/modmul.py:33"),
@@ -932,7 +961,240 @@ def drive_circuit_path(torch, np, params, dev, common, sk, pk, evk
                       for k, v in op_ms.items()},
             "op_launches": op_launches, "step_ms": step_ms,
             "step_launches": step_launches,
-            "profile_rotate": lambda: R.he_rotate(x_b, 1, rks[1], params)}
+            "profile_rotate": lambda: R.he_rotate(x_b, 1, rks[1], params),
+            "keys": (rks, ck)}
+
+
+def drive_serving_path(torch, np, params, dev, common, sk, pk, evk, rks,
+                       ck) -> dict:
+    """Phase 7: HEServer at `params` on phase 3's and phase 6's keys (see
+    the module docstring)."""
+    from repro_torch.core import heaan as H
+    from repro_torch.core import rotate as R
+    from repro_torch.core.encoding import message_hash
+    from repro_torch.hserve import HEServer
+    from repro_torch.hserve import circuit as C
+    from repro_torch.launch.serve import serve_he
+
+    phase_t0 = time.perf_counter()
+    logQ, logp = params.logQ, params.logp
+    logqs = [logQ - i * logp for i in range(SERVE_LEVELS)]
+    rng = np.random.default_rng(17)
+    n = AFFINE_SLOTS
+
+    def msg():
+        # drawn as phase 3 draws: real and imaginary parts uniform in [0, 1)
+        return rng.random(n) + 1j * rng.random(n)
+
+    # a pool of 4 ciphertexts a level, which the requests share
+    pool = []
+    for lvl, logq in enumerate(logqs):
+        row = []
+        for k in range(4):
+            z = msg()
+            ct = H.encrypt_message(z, pk, params, seed=500 + 4 * lvl + k)
+            row.append((z, H.he_mod_down(ct, params, logq)
+                        if logq < logQ else ct))
+        pool.append(row)
+    ws = [msg() for _ in logqs]
+    pts = [H.encode_plain(w, params, logq, device=dev)
+           for w, logq in zip(ws, logqs)]
+    h0 = message_hash(ws[0], params.log_delta)
+    n_mul = SERVE_REQUESTS - SERVE_ROTATIONS - SERVE_CONJUGATIONS
+    n_plain = int(round(SERVE_PLAIN_FRAC * n_mul))
+    # (label, submit(server) -> rid, the single op on the kernels,
+    #  expected slots, decryption limit)
+    reqs = []
+    for i in range(SERVE_REQUESTS):
+        lvl = i % SERVE_LEVELS
+        a = (i // SERVE_LEVELS) % 4
+        (za, ca), (zb, cb) = pool[lvl][a], pool[lvl][(a + 1) % 4]
+        if i < n_plain:
+            # level 0 registers w₀ by hash (a mul_plain), then serves an
+            # add_plain by hash alone; the other levels send their operand
+            op = "mul_plain" if i % 2 == 0 else "add_plain"
+            kw = ({"pt": pts[0], "pt_hash": h0} if i == 0 else
+                  {"pt_hash": h0} if lvl == 0 else {"pt": pts[lvl]})
+            sub_fn = getattr(HEServer, f"submit_{op}")
+            ref = (H.he_mul_plain(ca, pts[lvl], params) if op == "mul_plain"
+                   else H.he_add_plain(ca, pts[lvl], params))
+            want = za * ws[lvl] if op == "mul_plain" else za + ws[lvl]
+            reqs.append((f"{op}@{logqs[lvl]}",
+                         lambda s, f=sub_fn, c=ca, kw=kw: f(s, c, **kw),
+                         ref, want))
+        elif i < n_mul:
+            reqs.append((f"mul@{logqs[lvl]}",
+                         lambda s, x=ca, y=cb: s.submit_mul(x, y),
+                         H.he_mul(ca, cb, evk, params), za * zb))
+        elif i < n_mul + SERVE_ROTATIONS:
+            reqs.append((f"rotate@{logqs[lvl]}",
+                         lambda s, x=ca: s.submit_rotate(x, 1),
+                         R.he_rotate(ca, 1, rks[1], params),
+                         np.roll(za, -1)))
+        else:
+            reqs.append((f"conjugate@{logqs[lvl]}",
+                         lambda s, x=ca: s.submit_conjugate(x),
+                         R.he_conjugate(ca, ck, params), np.conj(za)))
+    keys = {"evk": evk, "rot_keys": rks, "conj_key": ck}
+    ops_a = C.degree4_demo_circuit(params)[0]
+    w_b, b_b = msg(), msg()
+    ops_b = C.affine_demo_circuit(params, w_b, b_b, device=dev)
+    circs = []
+    for name, ops, seed in (("A1", ops_a, 601), ("A2", ops_a, 602),
+                            ("B", ops_b, 603)):
+        z = msg()
+        x = H.encrypt_message(z, pk, params, seed=seed)
+        want = (np.conj(z ** 4) + z if ops is ops_a
+                else (np.roll(w_b * z + b_b, -1) - z).sum())
+        circs.append((name, ops, x, want,
+                      C.execute_circuit_reference(ops, {"x": x}, params,
+                                                  **keys)))
+
+    def serve(server):
+        """The stream, the first circuit, one flush (the two degree-4
+        circuits run out of phase), the rest, a drain. Returns the
+        results in submit order and the drain wall."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [submit(server) for _, submit, _, _ in reqs]
+        cids = [server.submit_circuit(circs[0][1], {"x": circs[0][2]})]
+        res = dict(server.poll(flush=True))
+        cids += [server.submit_circuit(ops, {"x": x})
+                 for _, ops, x, _, _ in circs[1:]]
+        res.update(server.drain())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(not server.queue.depth and server._inflight is None
+                and not server._circuits, "a request was left queued")
+        return [res[r] for r in rids + cids], wall
+
+    def same(x, y):
+        return (x.logq, x.logp) == (y.logq, y.logp) and torch.equal(
+            x.ax, y.ax) and torch.equal(x.bx, y.bx)
+
+    server = HEServer(params, evk, rks, ck, device=dev, batch=SERVE_BATCH,
+                      schedule=True)
+    common.reset_launches()
+    outs, first_wall = serve(server)
+    launches = dict(common.LAUNCHES)
+    require(all(launches[k] > 0 for k in SERVE_KERNELS),
+            f"a kernel never launched on the served path: {launches}")
+    refs = [r[2] for r in reqs] + [c[4] for c in circs]
+    labels = [r[0] for r in reqs] + [f"circuit {c[0]}" for c in circs]
+    for label, got, ref in zip(labels, outs, refs):
+        require(same(got, ref), f"served {label} differs from the "
+                f"single-ciphertext op (or execute_circuit_reference)")
+    errs = {}
+    for label, got, want in zip(labels, outs, [r[3] for r in reqs]
+                                + [c[3] for c in circs]):
+        if label.startswith("mul"):
+            got = H.rescale(got, params)
+        err = float(np.abs(H.decrypt_message(got, sk, params) - want).max())
+        kind = label.split("@")[0]
+        errs[kind] = max(errs.get(kind, 0.0), err)
+    # serve_he's limit for every request; phase 6's for the circuits
+    limits = {k: (0.3 if k.startswith("circuit A") else 1e-2) for k in errs}
+    for k, err in errs.items():
+        require(err < limits[k], f"served {k} decrypts {err:.3e} off "
+                f"(limit {limits[k]})")
+    print(f"serving: {len(outs)} results == single ops and "
+          f"execute_circuit_reference bit for bit; launches {launches}; "
+          f"max |err| {errs}", flush=True)
+
+    # ---- steady state, in turns: no overlap, overlap, overlap, none ------
+    dispatch = server.engine.dispatch
+    sync_checked = [0]
+
+    def strict(batch):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            sync_checked[0] += 1
+
+    server.engine.dispatch = strict
+    runs = []
+    for overlap in (False, True, True, False):
+        server.overlap = overlap
+        server.reset_metrics()
+        again, wall = serve(server)
+        require(all(same(a, b) for a, b in zip(again, outs)),
+                f"overlap={overlap} differs from the first drain")
+        st = server.stats()
+        n_ops = sum(d["requests"] for d in st["per_op"].values())
+        runs.append({
+            "overlap": overlap, "drain_s": wall,
+            "results_per_s": len(again) / wall, "ops_per_s": n_ops / wall,
+            "per_op": {op: {"requests": d["requests"],
+                            "batches": d["batches"],
+                            "pad_frac": d["pad_frac"],
+                            "ms_per_batch": 1e3 * d["wall_s"] / d["batches"],
+                            "p50_ms": d["latency_ms"]["p50"],
+                            "p99_ms": d["latency_ms"]["p99"]}
+                       for op, d in st["per_op"].items()},
+            "flushes": st["flushes"], "cobatch": st["cobatch"],
+            "scheduler": {k: st["scheduler"][k] for k in
+                          ("deferrals", "prefetches", "prefetched_levels")},
+            "cache": {k: st["cache"][k] for k in
+                      ("hits", "misses", "plain_hits", "plain_misses")}})
+        print(f"serving overlap={overlap}: drain {wall * 1e3:.1f} ms, "
+              f"{len(again) / wall:.1f} results/s, {n_ops / wall:.1f} ops/s;"
+              f" == first drain bit for bit; mul ms/batch "
+              f"{runs[-1]['per_op']['mul']['ms_per_batch']:.2f}", flush=True)
+    server.engine.dispatch = dispatch
+    require(sync_checked[0] > 0, "no dispatch ran under the sync check")
+    walls = {ov: [r["drain_s"] for r in runs if r["overlap"] == ov]
+             for ov in (False, True)}
+
+    # ---- Fig. 3: 4 mul batches and a rotate batch, stages fenced ----------
+    prof = HEServer(params, evk, rks, ck, device=dev, batch=SERVE_BATCH,
+                    profile_stages=True)
+    row = [c for _, c in pool[0]]
+    for k in range(4 * SERVE_BATCH):
+        prof.submit_mul(row[k % 4], row[(k // 4) % 4])
+    for k in range(SERVE_BATCH):
+        prof.submit_rotate(row[k], 1)
+    prof.drain()
+    st = prof.stats()
+    stages = st["stages"]
+    fig3 = {}
+    for op in ("mul", "rotate"):
+        wall = st["per_op"][op]["wall_s"]
+        total = prof.engine.stage_timer.stage_total(op)
+        fig3[op] = {"batches": st["per_op"][op]["batches"],
+                    "metered_wall_s": wall,
+                    "stage_s": stages["stages"][op],
+                    "calls": stages["calls"][op],
+                    "regions_s": stages["regions"][op],
+                    "stage_total_s": total, "coverage": total / wall}
+        print(f"fig3[{op}]: " + " ".join(
+            f"{k} {1e3 * v:.2f} ms" for k, v in stages["stages"][op].items())
+            + f"; coverage {total / wall:.1%} of {1e3 * wall:.2f} ms "
+            f"metered wall over {fig3[op]['batches']} batches", flush=True)
+
+    # ---- serve_he at SMOKE, through the normal entry point --------------
+    t0 = time.perf_counter()
+    smoke = serve_he(SERVE_BATCH, levels=3, rotations=2, conjugations=1,
+                     plain_frac=0.25, circuit=True, schedule=True,
+                     device="cuda")
+    smoke_s = time.perf_counter() - t0
+    require(smoke["max_err"] < 1e-2,
+            f"serve_he decrypts {smoke['max_err']:.3e} off (limit 1e-2)")
+    print(f"serve_he at SMOKE on {smoke['device']}: max_err "
+          f"{smoke['max_err']:.2e} in {smoke_s:.1f} s", flush=True)
+    return {"phase_s": time.perf_counter() - phase_t0,
+            "launches": launches, "first_drain_s": first_wall,
+            "requests": len(reqs), "circuits": [c[0] for c in circs],
+            "batch": SERVE_BATCH, "levels": logqs, "max_abs_err": errs,
+            "limits": limits, "runs": runs,
+            "drain_s_median": {str(ov).lower(): statistics.median(w)
+                               for ov, w in walls.items()},
+            "dispatches_sync_checked": sync_checked[0], "fig3": fig3,
+            "serve_he_smoke": {"max_err": smoke["max_err"], "s": smoke_s,
+                               "per_op": {op: d["requests"] for op, d in
+                                          smoke["per_op"].items()},
+                               "cobatch": smoke["cobatch"]}}
 
 
 def profile(torch, fn) -> dict:
@@ -1019,6 +1281,8 @@ def main() -> int:
         torch, lambda: H.he_mul(c1, c2, evk, params, plain), 2)[1]
     circuit = drive_circuit_path(torch, np, params, dev, common, path["sk"],
                                  path["pk"], evk)
+    serving = drive_serving_path(torch, np, params, dev, common, path["sk"],
+                                 path["pk"], evk, *circuit["keys"])
     per_he_mul = {key: sum(n * r[key] for k, counts in
                            HE_MUL_SHAPE_LAUNCHES.items()
                            for n, r in zip(counts, per_kernel[k]))
@@ -1036,13 +1300,16 @@ def main() -> int:
             "source": f"src/repro_torch/{src}", "replaces": tpu,
             # on every path: phase 3 (one HE Mul and its neighbours),
             # phase 4 (the batched step's rungs), phase 6 (Galois keygen
-            # and the circuits; the batched per-op steps)
+            # and the circuits; the batched per-op steps), phase 7 (the
+            # served stream's first drain)
             "launches": path["launches"][name] + batched["launches"][name]
-            + circuit["launches"][name] + circuit["steps_launches"][name],
+            + circuit["launches"][name] + circuit["steps_launches"][name]
+            + serving["launches"][name],
             "main_path_launches": path["launches"][name],
             "batched_step_launches": batched["launches"][name],
             "circuit_path_launches": circuit["launches"][name],
             "per_op_steps_launches": circuit["steps_launches"][name],
+            "serving_path_launches": serving["launches"][name],
             "he_mul_launches": path["he_mul_launches"].get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                + edges.get(name, [])),
@@ -1089,8 +1356,11 @@ def main() -> int:
     print(json.dumps({"circuit_path": {
         "params": "paper_params(): logN=16 logQ=1200 beta=2^32",
         "batch": BATCH, **{k: v for k, v in circuit.items()
-                           if k != "profile_rotate"},
+                           if k not in ("profile_rotate", "keys")},
         "he_rotate_profile": rot, "card": card}}))
+    print(json.dumps({"serving": {
+        "params": "paper_params(): logN=16 logQ=1200 beta=2^32",
+        **serving, "card": card}}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

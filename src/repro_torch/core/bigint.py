@@ -114,7 +114,10 @@ def shift_right_round(a: torch.Tensor, s: int, *, arithmetic: bool = True,
         half = torch.zeros(L, dtype=torch.int64, device=x.device)
         w_h, r_h = divmod(s - 1, 32)
         if w_h < L:
-            half[w_h] = 1 << r_h
+            # fill_ takes the word as a kernel argument; an indexed
+            # assignment of a Python int copies it from the host, and a
+            # blocking host-to-device copy synchronizes with the card
+            half[w_h].fill_(1 << r_h)
         x = _chain(x, half, 1)
     w, r = divmod(s, 32)
     ext = (_sign_fill(x, max(w, 1) + 1) if arithmetic

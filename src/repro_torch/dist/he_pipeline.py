@@ -31,9 +31,11 @@ Differences from the reference:
     make_stage_fns needs no HEStatic. The
     ``ev``/``out``/``limbs`` placements are dropped: they are
     ``with_sharding_constraint`` hints and carry no arithmetic.
-  - Left out: ``reduce_scatter_icrt``, ``stage_timer``, ``he_table_specs``
-    and ``he_input_specs``. They serve a mesh, the JAX package's observability or the
-    dry-run lowering.
+  - Left out: ``reduce_scatter_icrt``, ``he_table_specs`` and
+    ``he_input_specs``. They serve a mesh or the dry-run lowering.
+  - ``stage_timer`` (a :class:`repro_torch.obs.StageTimer`) times each
+    stage call eagerly, as the reference's does, with no per-stage jit
+    blocks: PyTorch issues every stage as it comes.
   - No ``quot_fix`` in :func:`region_tables`: the port's iCRT kernel takes
     its quotient from f64 (``p_inv_f64``); ``quot_fix`` is the TPU
     kernel's fixed-point stand-in. :class:`HEStatic` holds no iCRT tables:
@@ -53,8 +55,9 @@ Differences from the reference:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -261,7 +264,8 @@ class StageFns:
 
     `to_eval`/`from_eval` are the paper's CRT→NTT and iNTT→iCRT chains
     over (B, ·, ·) batches; `mont_mul` is the region-1 pointwise product,
-    `shoup_mul` the region-2 product against a key.
+    `shoup_mul` the region-2 product against a key; `timer` the Fig. 3
+    StageTimer the stages book into (None when not profiling).
     """
 
     to_eval: Callable[[torch.Tensor, Dict], torch.Tensor]
@@ -269,36 +273,58 @@ class StageFns:
     mont_mul: Callable[[torch.Tensor, torch.Tensor, Dict], torch.Tensor]
     shoup_mul: Callable[..., torch.Tensor]
     device: torch.device
+    timer: Optional[object] = None
 
 
 def make_stage_fns(device: str | torch.device = "cuda", *,
                    crt_strategy: str = "matmul",
                    icrt_strategy: str = "matmul",
                    modified_shoup: bool = False,
-                   use_kernels: bool = False) -> StageFns:
+                   use_kernels: bool = False,
+                   stage_timer=None) -> StageFns:
     """Bind the strategy knobs into a reusable stage bundle on `device`.
 
     `use_kernels` routes CRT/NTT/iNTT/iCRT/pointwise through the CUDA
-    kernels (their plain versions for CPU tensors)."""
+    kernels (their plain versions for CPU tensors).
+
+    `stage_timer` (a `repro_torch.obs.StageTimer`) fences and clocks
+    every stage call in the paper's Fig. 3 taxonomy — crt, ntt (forward
+    and inverse), modmul (Montgomery and Shoup pointwise), icrt. The
+    stages compute the same words either way."""
     dev = resolve_device(device)
+    if stage_timer is None:
+        def timed(stage, thunk):
+            return thunk()
+    else:
+        timed = stage_timer.timed
 
     def to_eval(x, t):
-        return _ntt_b(_crt_b(x, t, crt_strategy, use_kernels), t,
-                      modified_shoup, use_kernels)
+        r = timed("crt", lambda: _crt_b(x, t, crt_strategy, use_kernels))
+        return timed("ntt", lambda: _ntt_b(r, t, modified_shoup,
+                                           use_kernels))
 
     def from_eval(e, t, out_limbs):
-        return _icrt_b(_intt_b(e, t, modified_shoup, use_kernels), t,
-                       out_limbs, icrt_strategy, use_kernels)
+        # iNTT books under "ntt": Fig. 3 plots one transform bucket
+        r = timed("ntt", lambda: _intt_b(e, t, modified_shoup, use_kernels))
+        return timed("icrt", lambda: _icrt_b(r, t, out_limbs, icrt_strategy,
+                                             use_kernels))
 
     def mont_mul(a, b, t):
-        return _mont_mul_b(a, b, t, use_kernels)
+        return timed("modmul", lambda: _mont_mul_b(a, b, t, use_kernels))
 
     def shoup_mul(e, w, w_shoup, primes):
-        return pointwise_shoup_scale(e, w, w_shoup, primes,
-                                     modified=modified_shoup)
+        return timed("modmul", lambda: pointwise_shoup_scale(
+            e, w, w_shoup, primes, modified=modified_shoup))
 
     return StageFns(to_eval=to_eval, from_eval=from_eval, mont_mul=mont_mul,
-                    shoup_mul=shoup_mul, device=dev)
+                    shoup_mul=shoup_mul, device=dev, timer=stage_timer)
+
+
+def _region(sf: StageFns, name: str):
+    """Fig. 2 region scope when the bundle carries a StageTimer; free
+    (nullcontext) otherwise."""
+    return sf.timer.region(name) if sf.timer is not None \
+        else contextlib.nullcontext()
 
 
 def check_operands(st: HEStatic, device: torch.device,
@@ -324,14 +350,16 @@ def make_keyswitch_step(st: HEStatic, sf: StageFns):
     logQ, qlimbs = st.params.logQ, st.qlimbs
 
     def ks(t2, ek, d):
-        e2 = sf.to_eval(d, t2)
-        p2 = t2["primes"]
-        out = []
-        for key in ("ax_ev", "bx_ev"):
-            prod = sf.shoup_mul(e2, ek[key][:np2], ek[key + "_shoup"][:np2],
-                                p2)
-            out.append(bigint.shift_right_round(
-                sf.from_eval(prod, t2, ks_limbs), logQ, out_limbs=qlimbs))
+        with _region(sf, "region2"):
+            e2 = sf.to_eval(d, t2)
+            p2 = t2["primes"]
+            out = []
+            for key in ("ax_ev", "bx_ev"):
+                prod = sf.shoup_mul(e2, ek[key][:np2],
+                                    ek[key + "_shoup"][:np2], p2)
+                out.append(bigint.shift_right_round(
+                    sf.from_eval(prod, t2, ks_limbs), logQ,
+                    out_limbs=qlimbs))
         return out[0], out[1]
 
     return ks
@@ -341,40 +369,43 @@ def make_he_mul_step(st: HEStatic, device: str | torch.device = "cuda", *,
                      crt_strategy: str = "matmul",
                      icrt_strategy: str = "matmul",
                      modified_shoup: bool = False,
-                     use_kernels: bool = False):
+                     use_kernels: bool = False,
+                     stage_timer=None):
     """Build step(t1, t2, ek, ax1, bx1, ax2, bx2) -> (ax3, bx3).
 
     Operands are contiguous (B, N, qlimbs) limb batches on `device`;
     outputs likewise. The strategy knobs select the paper's optimization
     ladder per stage; `use_kernels` routes every stage through the CUDA
-    kernels, keeping the bitwise contract.
+    kernels, keeping the bitwise contract; `stage_timer` books each stage
+    and both regions into a StageTimer (same words).
     """
     logq, qlimbs = st.logq, st.qlimbs
     sf = make_stage_fns(device, crt_strategy=crt_strategy,
                         icrt_strategy=icrt_strategy,
                         modified_shoup=modified_shoup,
-                        use_kernels=use_kernels)
+                        use_kernels=use_kernels, stage_timer=stage_timer)
     keyswitch = make_keyswitch_step(st, sf)
 
     def step(t1, t2, ek, ax1, bx1, ax2, bx2):
         check_operands(st, sf.device, ax1, bx1, ax2, bx2)
         p1 = wide(t1["primes"])[:, None]
         # ---- region 1: 4×(CRT→NTT), 3 pointwise, 3×(iNTT→iCRT) ----------
-        ea1 = sf.to_eval(ax1, t1)
-        eb1 = sf.to_eval(bx1, t1)
-        ea2 = sf.to_eval(ax2, t1)
-        eb2 = sf.to_eval(bx2, t1)
+        with _region(sf, "region1"):
+            ea1 = sf.to_eval(ax1, t1)
+            eb1 = sf.to_eval(bx1, t1)
+            ea2 = sf.to_eval(ax2, t1)
+            eb2 = sf.to_eval(bx2, t1)
 
-        d0_ev = sf.mont_mul(eb1, eb2, t1)
-        d2_ev = sf.mont_mul(ea1, ea2, t1)
-        d1_ev = sf.mont_mul(narrow(modadd(wide(ea1), wide(eb1), p1)),
-                            narrow(modadd(wide(ea2), wide(eb2), p1)), t1)
-        d1_ev = narrow(modsub(modsub(wide(d1_ev), wide(d0_ev), p1),
-                              wide(d2_ev), p1))
+            d0_ev = sf.mont_mul(eb1, eb2, t1)
+            d2_ev = sf.mont_mul(ea1, ea2, t1)
+            d1_ev = sf.mont_mul(narrow(modadd(wide(ea1), wide(eb1), p1)),
+                                narrow(modadd(wide(ea2), wide(eb2), p1)), t1)
+            d1_ev = narrow(modsub(modsub(wide(d1_ev), wide(d0_ev), p1),
+                                  wide(d2_ev), p1))
 
-        d0 = sf.from_eval(d0_ev, t1, qlimbs)
-        d1 = sf.from_eval(d1_ev, t1, qlimbs)
-        d2 = bigint.mask_bits(sf.from_eval(d2_ev, t1, qlimbs), logq)
+            d0 = sf.from_eval(d0_ev, t1, qlimbs)
+            d1 = sf.from_eval(d1_ev, t1, qlimbs)
+            d2 = bigint.mask_bits(sf.from_eval(d2_ev, t1, qlimbs), logq)
 
         # ---- region 2: key switching against the evk --------------------
         ks_ax, ks_bx = keyswitch(t2, ek, d2)

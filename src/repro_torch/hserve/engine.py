@@ -28,33 +28,53 @@ Every step equals its single-ciphertext counterpart in
 :mod:`repro_torch.core.heaan` / :mod:`repro_torch.core.rotate` on each
 item, bit for bit: the stages are the same and exact.
 
-This is lines 82–276 of the JAX package's ``hserve/engine.py``. Each
-``make_*_step`` takes ``(st, device, **knobs)`` where the reference takes
+:class:`OpEngine` executes assembled batches (:mod:`.queue`) through
+those steps: one step per (op, level, extra), tables from the level-aware
+:class:`~repro_torch.hserve.tables.TableCache`, and asynchronous
+``dispatch``/``wait`` for double buffering: dispatch issues a step and
+records a CUDA event behind it; wait synchronizes that event.
+
+This is the JAX package's ``hserve/engine.py``. Each ``make_*_step``
+takes ``(st, device, **knobs)`` where the reference takes
 ``(st, mesh, **knobs)``, as ``make_he_mul_step`` does; knobs are
-``make_stage_fns``'s (``use_kernels``, ``crt_strategy``, …). The
-reference's ``_glue_jit`` and ``sf.out`` placements carry no arithmetic
-and are dropped. Operands are (B, N, qlimbs) at the step's level on its
-device; a step refuses others.
+``make_stage_fns``'s (``use_kernels``, ``crt_strategy``, …,
+``stage_timer``). The reference's ``_glue_jit`` and ``sf.out`` placements
+carry no arithmetic and are dropped, and so is its jit: PyTorch issues
+every step eagerly, so ``profile_stages`` changes only the StageTimer
+threaded through the knobs. Operands are (B, N, qlimbs) at the step's
+level on its device; a step refuses others.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import dataclasses
+import time
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core import bigint
+from repro_torch.core.cipher import Ciphertext
 from repro_torch.core.context import resolve_device
 from repro_torch.core.heaan import mod_down_poly, mod_raise_poly, rescale_poly
-from repro_torch.core.rotate import automorphism_poly, rotation_k
-from repro_torch.dist.he_pipeline import (
-    HEStatic, check_operands, make_keyswitch_step, make_stage_fns,
+from repro_torch.core.params import HEParams
+from repro_torch.core.rotate import (
+    automorphism_poly, conjugation_k, rotation_k,
 )
+from repro_torch.dist.he_pipeline import (
+    HEStatic, check_operands, he_static, make_he_mul_step,
+    make_keyswitch_step, make_stage_fns,
+)
+from repro_torch.obs.stages import StageTimer
+
+if TYPE_CHECKING:
+    from repro_torch.hserve.queue import Batch
+    from repro_torch.hserve.tables import TableCache
 
 __all__ = ["STAGE_OPS", "slot_sum_rotations", "make_he_rotate_step",
            "make_slot_sum_step", "make_rescale_step", "make_mod_down_step",
            "make_mod_raise_step", "make_addsub_step", "make_mul_plain_step",
-           "make_add_plain_step"]
+           "make_add_plain_step", "Inflight", "OpEngine"]
 
 
 # Ops whose steps run the Fig. 3 stage chain (CRT/NTT/modmul/iCRT); the
@@ -228,3 +248,271 @@ def make_add_plain_step(st: HEStatic, device: str | torch.device, **knobs):
         return ax, bigint.mask_bits(bigint.add(bx, pt), logq)
 
     return step
+
+
+# --------------------------------------------------------------------------
+# the executor
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Inflight:
+    """A dispatched-but-not-awaited engine step (double-buffer handle).
+
+    ax/bx are the step's output tensors, still being computed on the card;
+    `event` was recorded behind the step's launches (None for CPU tensors,
+    which are complete when the step returns). The host is free to
+    assemble the next batch while the device works.
+    """
+
+    batch: "Batch"
+    ax: torch.Tensor
+    bx: torch.Tensor
+    t0: float
+    event: Optional[torch.cuda.Event]
+
+
+class OpEngine:
+    """Executor for assembled batches, one step per signature.
+
+    Steps are cached by batch bucket key; tables come from the level-aware
+    TableCache, so a new level costs one step build + views, never a table
+    rebuild. `dispatch` issues the step without waiting for the card;
+    `wait` synchronizes its event, re-wraps the valid rows as Ciphertexts
+    with the op's output level metadata, and returns the host-observed
+    wall time. `run` = wait(dispatch(batch)).
+    """
+
+    def __init__(self, params: HEParams, device: str | torch.device,
+                 cache: "TableCache", *, use_kernels: bool = True,
+                 crt_strategy: str = "matmul",
+                 icrt_strategy: str = "matmul",
+                 modified_shoup: bool = False, tracer=None,
+                 profile_stages: bool = False):
+        self.params = params
+        self.device = resolve_device(device)
+        self.cache = cache
+        self.profile_stages = profile_stages
+        # Fig. 3 attribution: the timer rides the stage bundle's knobs and
+        # fences every stage; the steps are the same otherwise
+        self.stage_timer = StageTimer(tracer=tracer) if profile_stages \
+            else None
+        self._tracer = tracer
+        self._knobs = dict(use_kernels=use_kernels,
+                           crt_strategy=crt_strategy,
+                           icrt_strategy=icrt_strategy,
+                           modified_shoup=modified_shoup)
+        if profile_stages:
+            self._knobs["stage_timer"] = self.stage_timer
+        self._steps: Dict[Tuple, Callable] = {}
+        self._static: Dict[int, HEStatic] = {}
+        self._warmed: set = set()
+        self.compile_s = 0.0
+
+    @property
+    def tracer(self):
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, t) -> None:
+        """Re-pointable after construction; the stage timer follows the
+        engine's tracer."""
+        self._tracer = t
+        if self.stage_timer is not None:
+            self.stage_timer.tracer = t
+
+    def _st(self, logq: int) -> HEStatic:
+        if logq not in self._static:
+            self._static[logq] = he_static(self.params, logq)
+        return self._static[logq]
+
+    def _step_for(self, key: Tuple) -> Callable:
+        """The runner(arrays) -> (ax, bx) for (op, logq, extra), built
+        once and closing over the right tables and keys."""
+        if key in self._steps:
+            return self._steps[key]
+        op, logq, extra = key
+        st, dev, kw = self._st(logq), self.device, self._knobs
+        t1, t2 = self.cache.level_tables(logq)
+        if op == "mul":
+            step = make_he_mul_step(st, dev, **kw)
+            ek = self.cache.evk()
+
+            def runner(a):
+                return step(t1, t2, ek, a["ax1"], a["bx1"], a["ax2"],
+                            a["bx2"])
+        elif op in ("rotate", "conjugate"):
+            k = rotation_k(self.params, extra) if op == "rotate" \
+                else conjugation_k(self.params)
+            step = make_he_rotate_step(st, dev, k, **kw)
+            rk = self.cache.rot_key(extra) if op == "rotate" \
+                else self.cache.conj_key()
+
+            def runner(a):
+                return step(t2, rk, a["ax1"], a["bx1"])
+        elif op == "slot_sum":
+            step = make_slot_sum_step(st, dev, extra, **kw)
+            rks = tuple(self.cache.rot_key(r)
+                        for r in slot_sum_rotations(extra))
+
+            def runner(a):
+                return step(t2, rks, a["ax1"], a["bx1"])
+        elif op in ("rescale", "mod_down", "mod_raise"):
+            make = {"rescale": make_rescale_step,
+                    "mod_down": make_mod_down_step,
+                    "mod_raise": make_mod_raise_step}[op]
+            step = make(st, dev, extra, **kw)
+
+            def runner(a):
+                return step(a["ax1"], a["bx1"])
+        elif op in ("add", "sub"):
+            step = make_addsub_step(st, dev, op, **kw)
+
+            def runner(a):
+                return step(a["ax1"], a["bx1"], a["ax2"], a["bx2"])
+        elif op == "mul_plain":
+            step = make_mul_plain_step(st, dev, **kw)
+
+            def runner(a):
+                return step(t1, a["ax1"], a["bx1"], a["pt"])
+        elif op == "add_plain":
+            step = make_add_plain_step(st, dev, **kw)
+
+            def runner(a):
+                return step(a["ax1"], a["bx1"], a["pt"])
+        else:
+            raise ValueError(f"unknown op {op!r}")
+        self._steps[key] = runner
+        return runner
+
+    @property
+    def n_compiled(self) -> int:
+        """Steps built (one per signature; the reference's count of
+        compiled steps)."""
+        return len(self._steps)
+
+    def _place(self, batch: "Batch") -> Dict[str, torch.Tensor]:
+        """The batch's operands on the engine's device: host tensors move
+        (asynchronously, under an "h2d" span), device tensors stay."""
+        if all(v.device == self.device for v in batch.arrays.values()):
+            return batch.arrays
+        span = self._tracer.span(
+            "h2d", cat="engine", lane="engine",
+            args={"op": batch.op, "batch": batch.size}) \
+            if self._tracer is not None else None
+        out = {k: v.to(self.device, non_blocking=True)
+               for k, v in batch.arrays.items()}
+        if span is not None:
+            span.end()
+        return out
+
+    def warm_batch(self, batch: "Batch") -> None:
+        """Build the batch's step and run it once, unmetered (no-op once
+        warm); the elapsed time lands in `compile_s`, so steady-state
+        metrics never include a signature's first run (there is no
+        compile: it is the step build, its table views, and the first
+        launches). The first batch of a signature therefore runs twice —
+        one extra batch per (op, level) over the server's lifetime."""
+        if batch.key in self._warmed:
+            return
+        span = self._tracer.span(
+            "warm_compile", cat="engine", lane="engine",
+            args={"op": batch.op, "logq": batch.logq}) \
+            if self._tracer is not None else None
+        t0 = time.perf_counter()
+        runner = self._step_for(batch.key)
+        arrays = self._place(batch)
+        if self.stage_timer is not None:
+            # warm runs must not pollute the Fig. 3 attribution
+            with self.stage_timer.pause():
+                runner(arrays)
+        else:
+            runner(arrays)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.compile_s += time.perf_counter() - t0
+        if span is not None:
+            span.end()
+        self._warmed.add(batch.key)
+
+    # ---- async execution (double buffering) ------------------------------
+
+    def dispatch(self, batch: "Batch") -> Inflight:
+        """Place + issue one batch WITHOUT waiting for the card.
+
+        A cold signature is warmed first (`warm_batch`), so steady-state
+        metrics never include it. The returned handle's tensors are still
+        being computed — the caller overlaps the next batch's assembly
+        against this step, then `wait`s.
+        """
+        self.warm_batch(batch)
+        runner = self._step_for(batch.key)
+        arrays = self._place(batch)
+        t0 = time.perf_counter()
+        if self.stage_timer is not None:
+            with self.stage_timer.op(batch.op):
+                ax, bx = runner(arrays)
+        else:
+            ax, bx = runner(arrays)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return Inflight(batch=batch, ax=ax, bx=bx, t0=t0, event=event)
+
+    def wait(self, inflight: Inflight
+             ) -> Tuple[List[Ciphertext], float]:
+        """Wait for a dispatched batch; returns (outputs, wall_s) with the
+        n_valid outputs in request order (padded lanes computed and
+        discarded) and the dispatch→ready wall time AS OBSERVED BY THE
+        HOST. On the synchronous run() path that is the step's wall; on
+        the overlapped path it also includes any host time between
+        dispatch and this wait (an upper bound on device time), so use
+        drain walls to quantify the overlap win."""
+        if inflight.event is not None:
+            inflight.event.synchronize()
+        wall = time.perf_counter() - inflight.t0
+        if self._tracer is not None:
+            b = inflight.batch
+            self._tracer.event(
+                "device_wall", cat="lifecycle", lane="engine",
+                ts=inflight.t0, dur=wall,
+                args={"op": b.op, "logq": b.logq, "batch": b.size,
+                      "n_valid": b.n_valid})
+        return self._wrap(inflight.batch, inflight.ax, inflight.bx), wall
+
+    def run(self, batch: "Batch") -> List[Ciphertext]:
+        """Synchronous dispatch→wait; returns the n_valid outputs in
+        request order."""
+        outs, _ = self.wait(self.dispatch(batch))
+        return outs
+
+    def _wrap(self, batch: "Batch", ax, bx) -> List[Ciphertext]:
+        """Re-wrap step outputs as Ciphertexts with each op's output
+        level metadata (the server-side level tracking contract):
+
+          mul          logq,          logp₁ + logp₂
+          mul_plain    logq,          logp + pt_logp
+          add/sub/add_plain           logq, logp (equality checked at
+                                      submit)
+          rotate/conjugate/slot_sum   unchanged
+          rescale      logq − dlogp,  logp − dlogp
+          mod_down     logq2,         logp
+          mod_raise    logq2,         logp
+        """
+        op = batch.op
+        out = []
+        for i, req in enumerate(batch.requests):
+            c0 = req.cts[0]
+            logq, logp = batch.logq, c0.logp
+            if op == "mul":
+                logp = c0.logp + req.cts[1].logp
+            elif op == "mul_plain":
+                logp = c0.logp + req.pt_logp
+            elif op == "rescale":
+                logq -= req.dlogp
+                logp -= req.dlogp
+            elif op in ("mod_down", "mod_raise"):
+                logq = req.logq2
+            out.append(Ciphertext(ax=ax[i], bx=bx[i], logq=logq,
+                                  logp=logp, n_slots=c0.n_slots))
+        return out

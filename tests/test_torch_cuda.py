@@ -469,3 +469,101 @@ def test_cuda_crt_icrt_at_lower_level_paper_shapes(dev, logq):
         t = icrt_inputs(device_icrt_tables(p, npn, dev), g)
         r = _t(_residues(primes, npn, 5 * BLOCK // 2, npn), dev)
         assert torch.equal(icrt_op(r, t, out), icrt_ref(r, t, out))
+
+
+@pytest.mark.parametrize("s", [1, 31, 32, 1200])
+def test_cuda_bigint_shift_never_syncs_the_host(dev, s):
+    """shift_right_round (the key switch's ÷Q and rescale's ÷p) issues no
+    synchronizing operation: its rounding word is filled on the card, not
+    assigned from a Python int (a blocking host-to-device copy)."""
+    from repro_torch.core import bigint
+    a = torch.randint(-2**31, 2**31 - 1, (4, 64, 76), dtype=torch.int32,
+                      device=dev)
+    want = bigint.shift_right_round(a.cpu(), s, out_limbs=38)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = bigint.shift_right_round(a, s, out_limbs=38)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got.cpu(), want)
+
+
+def _serve_stream(dev, p, keys, pk, **kw):
+    """A mixed stream through an HEServer on `dev` at batch 4: three muls
+    at logQ (a padded batch: 3 requests into 4), a mul one level down,
+    rotate, conjugate, slot_sum, rescale, mod_down, add, mul_plain
+    registered by hash and reused, and two staggered degree-4 circuits
+    under the scheduler. Returns (outputs in submit order, server)."""
+    from repro_torch.core.encoding import message_hash
+    from repro_torch.hserve import HEServer, degree4_demo_circuit
+    evk, rks, ck = keys
+    server = HEServer(p, evk, rks, ck, device=dev, batch=4, schedule=True,
+                      **kw)
+    rng = np.random.default_rng(11)
+    cts = [H.encrypt_message(rng.random(4) + 1j * rng.random(4), pk, p,
+                             seed=30 + i) for i in range(8)]
+    low = [H.he_mod_down(c, p, p.logQ - p.logp) for c in cts[:2]]
+    w = rng.random(4)
+    pt = H.encode_plain(w, p, p.logQ, device=dev)
+    h = message_hash(w, p.log_delta)
+    ops, _ = degree4_demo_circuit(p)
+    s = server
+    rids = [s.submit_mul(cts[0], cts[1]), s.submit_mul(cts[2], cts[3]),
+            s.submit_mul(cts[4], cts[5]), s.submit_mul(low[0], low[1]),
+            s.submit_rotate(cts[6], 1), s.submit_conjugate(cts[6]),
+            s.submit_slot_sum(cts[7]), s.submit_rescale(cts[7]),
+            s.submit_mod_down(cts[7], p.logQ - 2 * p.logp),
+            s.submit_add(cts[6], cts[7]),
+            s.submit_mul_plain(cts[6], pt, pt_hash=h),
+            s.submit_mul_plain(cts[7], pt_hash=h),
+            s.submit_circuit(ops, {"x": cts[0]})]
+    res = dict(s.poll(flush=True))             # desync the two circuits
+    rids.append(s.submit_circuit(ops, {"x": cts[1]}))
+    res.update(s.drain())
+    assert s._inflight is None and not s._circuits and not s.queue.depth
+    return [res[r] for r in rids], server
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_cuda_served_stream_equals_plain_path_server(dev, overlap):
+    """HEServer on the card at test_params() through the kernels gives the
+    words of the same server on the plain path (use_kernels=False), with
+    and without overlap, including a padded batch (3 muls into batch 4);
+    every kernel launches; and once warm, dispatch never synchronizes the
+    host with the card (set_sync_debug_mode("error") around it)."""
+    from repro_torch.core.rotate import conj_keygen, rot_keygen
+    p = small_params()
+    sk, pk, evk = keygen(p, seed=3, device=dev)
+    keys = (evk, {r: rot_keygen(p, sk, r, device=dev) for r in (1, 2)},
+            conj_keygen(p, sk, device=dev))
+    common.reset_launches()
+    got, server = _serve_stream(dev, p, keys, pk, overlap=overlap)
+    torch.cuda.synchronize()
+    assert all(common.LAUNCHES[k] > 0
+               for k in ("crt", "ntt", "intt", "icrt", "modmul"))
+    assert server.stats()["per_op"]["mul"]["pad_frac"] > 0
+    want, _ = _serve_stream(dev, p, keys, pk, overlap=overlap,
+                            use_kernels=False)
+    for a, b in zip(got, want):
+        assert (a.logq, a.logp) == (b.logq, b.logp)
+        assert torch.equal(a.ax, b.ax) and torch.equal(a.bx, b.bx)
+    # the same signatures again on the warm server: dispatch must not sync
+    dispatch = server.engine.dispatch
+
+    def strict(batch):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    server.engine.dispatch = strict
+    rng = np.random.default_rng(12)
+    c = [H.encrypt_message(rng.random(4) + 0j, pk, p, seed=60 + i)
+         for i in range(2)]
+    rids = [server.submit_mul(c[0], c[1]), server.submit_rotate(c[0], 1),
+            server.submit_conjugate(c[1]), server.submit_add(c[0], c[1])]
+    res = server.drain()
+    ref = H.he_mul(c[0], c[1], evk, p)
+    assert torch.equal(res[rids[0]].ax, ref.ax)

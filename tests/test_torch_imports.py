@@ -35,6 +35,10 @@ def test_no_module_of_the_port_imports_jax_or_repro():
     for name in ("repro_torch.core.heaan", "repro_torch.core.rotate",
                  "repro_torch.analysis.dataflow", "repro_torch.hserve.circuit",
                  "repro_torch.hserve.engine", "repro_torch.dist.he_pipeline",
-                 "repro_torch.kernels.ntt.variants", "repro_torch.convert"):
+                 "repro_torch.kernels.ntt.variants", "repro_torch.convert",
+                 "repro_torch.hserve.server", "repro_torch.hserve.tables",
+                 "repro_torch.hserve.scheduler", "repro_torch.hserve.queue",
+                 "repro_torch.obs.stages", "repro_torch.obs.report",
+                 "repro_torch.launch.serve"):
         assert name in got["modules"]
     assert got["bad"] == []
