@@ -81,6 +81,26 @@ Phases; any failure exits non-zero and prints no result:
    rotate batch with ``profile_stages=True``: the Fig. 3 split and the
    four stages' coverage of the op's metered wall (printed, not gated).
    Last, ``launch.serve.serve_he`` at its SMOKE parameters on the card.
+8. The multi-host tier (``repro_torch.hserve.HEFrontend``) at
+   ``paper_params()`` on the same keys, serving phase 7's stream
+   (``serve_stream``): a frontend on the host with MULTIHOST_WORKERS worker
+   processes on the card (``transport="subprocess"``) whose worker 0 is
+   killed after its 2nd batch (``FailureInjector``): every result equals
+   phase 7's ``HEServer`` result bit for bit, with one death and its batch
+   requeued; ``revive_workers()`` respawns it (the 1 GB init frame
+   replayed) and its batches are bit for bit; then a timed drain with the
+   workers' launch counts set to 0 just before and read just after (every
+   kernel launched inside the workers). A traced ``HESession`` over that
+   frontend runs TRACED_EXPRS of serve_he's expressions at 64 slots: the
+   analyzer's reports are printed; when they flag a finding,
+   ``check="error"`` must refuse the run with nothing enqueued, and the run
+   goes on under ``check="warn"``; every result equals
+   ``execute_circuit_reference`` of its compiled ops bit for bit and
+   decrypts within 1e-2. Then one subprocess worker, and in-process
+   workers on the card (launches counted in this process), each bit for
+   bit. Printed: drain walls beside phase 7's, each mul batch's frame
+   bytes and seconds, each worker's busy share, init seconds and bytes,
+   and kernel launches.
 
 Before the last line it prints the nvidia-smi line, one JSON line of
 per-kernel numbers (``{"kernels": [...]}``: the headline times are those
@@ -88,7 +108,8 @@ of ``headline_shape``, HE Mul's region 1 for a kernel and the batched
 step's first shape for a variant; every shape is under ``shapes``) and JSON
 lines for HE Mul's times, the batched step's and their traces;
 the circuit path's JSON line, the serving JSON line
-(``{"serving": {...}}``) and the nvidia-smi line again; the last line
+(``{"serving": {...}}``), the multi-host JSON line (``{"multihost":
+{...}}``) and the nvidia-smi line again; the last line
 is ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -154,6 +175,10 @@ SERVE_REQUESTS = 24
 SERVE_ROTATIONS, SERVE_CONJUGATIONS = 4, 2
 SERVE_PLAIN_FRAC = 0.25
 SERVE_KERNELS = ("modmul", "ntt", "intt", "crt", "icrt")
+# Phase 8, the multi-host tier: workers a frontend runs, and the traced
+# client expressions
+MULTIHOST_WORKERS = 2
+TRACED_EXPRS = 2
 SOURCES = {
     "modmul": ("kernels/csrc/modmul.cu",
                "src/repro/kernels/modmul/modmul.py:33"),
@@ -965,6 +990,51 @@ def drive_circuit_path(torch, np, params, dev, common, sk, pk, evk
             "keys": (rks, ck)}
 
 
+def moved(x, device):
+    """A ciphertext or tensor on `device` (itself when it lies there)."""
+    import torch
+    from repro_torch.core.cipher import Ciphertext
+    if isinstance(x, (Ciphertext, torch.Tensor)):
+        return x.to(device)
+    return x
+
+
+def same_ct(x, y) -> bool:
+    """Whether two ciphertexts are equal word for word (compared on y's
+    device) at the same level and scale."""
+    import torch
+    return (x.logq, x.logp) == (y.logq, y.logp) and torch.equal(
+        x.ax.to(y.ax.device), y.ax) and torch.equal(x.bx.to(y.bx.device),
+                                                     y.bx)
+
+
+def serve_stream(torch, server, reqs, circs) -> tuple:
+    """Phase 7's stream on `server` (an HEServer or an HEFrontend): the
+    requests, the first circuit, one flush (the two degree-4 circuits run
+    out of phase), the rest, a drain. Operands are moved to the server's
+    device first, outside the timed span. Returns the results in submit
+    order and the drain wall."""
+    import dataclasses
+    dev = server.device
+    calls = [(getattr(server, meth), [moved(a, dev) for a in args],
+              {k: moved(v, dev) for k, v in kw.items()})
+             for _, meth, args, kw, _, _ in reqs]
+    cins = [([dataclasses.replace(o, pt=moved(o.pt, dev)) for o in ops],
+             moved(x, dev)) for _, ops, x, _, _ in circs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [f(*a, **kw) for f, a, kw in calls]
+    cids = [server.submit_circuit(cins[0][0], {"x": cins[0][1]})]
+    res = dict(server.poll(flush=True))
+    cids += [server.submit_circuit(ops, {"x": x}) for ops, x in cins[1:]]
+    res.update(server.drain())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(not server.queue.depth and not server._work_pending()
+            and not server._circuits, "a request was left queued")
+    return [res[r] for r in rids + cids], wall
+
+
 def drive_serving_path(torch, np, params, dev, common, sk, pk, evk, rks,
                        ck) -> dict:
     """Phase 7: HEServer at `params` on phase 3's and phase 6's keys (see
@@ -1002,8 +1072,8 @@ def drive_serving_path(torch, np, params, dev, common, sk, pk, evk, rks,
     h0 = message_hash(ws[0], params.log_delta)
     n_mul = SERVE_REQUESTS - SERVE_ROTATIONS - SERVE_CONJUGATIONS
     n_plain = int(round(SERVE_PLAIN_FRAC * n_mul))
-    # (label, submit(server) -> rid, the single op on the kernels,
-    #  expected slots, decryption limit)
+    # (label, HEServer submit method, its operands and keywords, the single
+    #  op on the kernels, expected slots)
     reqs = []
     for i in range(SERVE_REQUESTS):
         lvl = i % SERVE_LEVELS
@@ -1015,26 +1085,22 @@ def drive_serving_path(torch, np, params, dev, common, sk, pk, evk, rks,
             op = "mul_plain" if i % 2 == 0 else "add_plain"
             kw = ({"pt": pts[0], "pt_hash": h0} if i == 0 else
                   {"pt_hash": h0} if lvl == 0 else {"pt": pts[lvl]})
-            sub_fn = getattr(HEServer, f"submit_{op}")
             ref = (H.he_mul_plain(ca, pts[lvl], params) if op == "mul_plain"
                    else H.he_add_plain(ca, pts[lvl], params))
             want = za * ws[lvl] if op == "mul_plain" else za + ws[lvl]
-            reqs.append((f"{op}@{logqs[lvl]}",
-                         lambda s, f=sub_fn, c=ca, kw=kw: f(s, c, **kw),
+            reqs.append((f"{op}@{logqs[lvl]}", f"submit_{op}", (ca,), kw,
                          ref, want))
         elif i < n_mul:
-            reqs.append((f"mul@{logqs[lvl]}",
-                         lambda s, x=ca, y=cb: s.submit_mul(x, y),
+            reqs.append((f"mul@{logqs[lvl]}", "submit_mul", (ca, cb), {},
                          H.he_mul(ca, cb, evk, params), za * zb))
         elif i < n_mul + SERVE_ROTATIONS:
-            reqs.append((f"rotate@{logqs[lvl]}",
-                         lambda s, x=ca: s.submit_rotate(x, 1),
-                         R.he_rotate(ca, 1, rks[1], params),
+            reqs.append((f"rotate@{logqs[lvl]}", "submit_rotate", (ca, 1),
+                         {}, R.he_rotate(ca, 1, rks[1], params),
                          np.roll(za, -1)))
         else:
-            reqs.append((f"conjugate@{logqs[lvl]}",
-                         lambda s, x=ca: s.submit_conjugate(x),
-                         R.he_conjugate(ca, ck, params), np.conj(za)))
+            reqs.append((f"conjugate@{logqs[lvl]}", "submit_conjugate",
+                         (ca,), {}, R.he_conjugate(ca, ck, params),
+                         np.conj(za)))
     keys = {"evk": evk, "rot_keys": rks, "conj_key": ck}
     ops_a = C.degree4_demo_circuit(params)[0]
     w_b, b_b = msg(), msg()
@@ -1051,26 +1117,9 @@ def drive_serving_path(torch, np, params, dev, common, sk, pk, evk, rks,
                                                   **keys)))
 
     def serve(server):
-        """The stream, the first circuit, one flush (the two degree-4
-        circuits run out of phase), the rest, a drain. Returns the
-        results in submit order and the drain wall."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rids = [submit(server) for _, submit, _, _ in reqs]
-        cids = [server.submit_circuit(circs[0][1], {"x": circs[0][2]})]
-        res = dict(server.poll(flush=True))
-        cids += [server.submit_circuit(ops, {"x": x})
-                 for _, ops, x, _, _ in circs[1:]]
-        res.update(server.drain())
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        require(not server.queue.depth and server._inflight is None
-                and not server._circuits, "a request was left queued")
-        return [res[r] for r in rids + cids], wall
+        return serve_stream(torch, server, reqs, circs)
 
-    def same(x, y):
-        return (x.logq, x.logp) == (y.logq, y.logp) and torch.equal(
-            x.ax, y.ax) and torch.equal(x.bx, y.bx)
+    same = same_ct
 
     server = HEServer(params, evk, rks, ck, device=dev, batch=SERVE_BATCH,
                       schedule=True)
@@ -1079,13 +1128,13 @@ def drive_serving_path(torch, np, params, dev, common, sk, pk, evk, rks,
     launches = dict(common.LAUNCHES)
     require(all(launches[k] > 0 for k in SERVE_KERNELS),
             f"a kernel never launched on the served path: {launches}")
-    refs = [r[2] for r in reqs] + [c[4] for c in circs]
+    refs = [r[4] for r in reqs] + [c[4] for c in circs]
     labels = [r[0] for r in reqs] + [f"circuit {c[0]}" for c in circs]
     for label, got, ref in zip(labels, outs, refs):
         require(same(got, ref), f"served {label} differs from the "
                 f"single-ciphertext op (or execute_circuit_reference)")
     errs = {}
-    for label, got, want in zip(labels, outs, [r[3] for r in reqs]
+    for label, got, want in zip(labels, outs, [r[5] for r in reqs]
                                 + [c[3] for c in circs]):
         if label.startswith("mul"):
             got = H.rescale(got, params)
@@ -1184,6 +1233,7 @@ def drive_serving_path(torch, np, params, dev, common, sk, pk, evk, rks,
     print(f"serve_he at SMOKE on {smoke['device']}: max_err "
           f"{smoke['max_err']:.2e} in {smoke_s:.1f} s", flush=True)
     return {"phase_s": time.perf_counter() - phase_t0,
+            "stream": (reqs, circs, outs, labels),
             "launches": launches, "first_drain_s": first_wall,
             "requests": len(reqs), "circuits": [c[0] for c in circs],
             "batch": SERVE_BATCH, "levels": logqs, "max_abs_err": errs,
@@ -1195,6 +1245,249 @@ def drive_serving_path(torch, np, params, dev, common, sk, pk, evk, rks,
                                "per_op": {op: d["requests"] for op, d in
                                           smoke["per_op"].items()},
                                "cobatch": smoke["cobatch"]}}
+
+
+def drive_multihost_path(torch, np, params, dev, common, sk, pk, evk, rks,
+                         ck, stream) -> dict:
+    """Phase 8: the multi-host tier at `params` on phase 3's and phase 6's
+    keys, serving phase 7's stream (see the module docstring)."""
+    import warnings
+    from repro_torch.analysis import analyze_handle
+    from repro_torch.client import HESession, compile_handle
+    from repro_torch.hserve import HEFrontend
+    from repro_torch.hserve import circuit as C
+    from repro_torch.runtime import FailureInjector
+
+    phase_t0 = time.perf_counter()
+    reqs, circs, outs, labels = stream
+    kw = dict(workers=MULTIHOST_WORKERS, worker_device=str(dev),
+              batch=SERVE_BATCH, schedule=True)
+
+    def check_same(got, what):
+        for label, a, b in zip(labels, got, outs):
+            require(same_ct(a, b), f"{what}: {label} differs from phase "
+                    f"7's HEServer result")
+
+    def frames(fe):
+        """Per mul batch: frame bytes and seconds (frontend and worker
+        side)."""
+        return [{"wid": w.wid, **f} for w in fe.workers
+                for f in w.frame_log if f["op"] == "mul"]
+
+    def transport(fe, wall):
+        """The frontend thread's seconds on frames over a drain, summed
+        from every batch's frame_log entry: send.* and recv.* but the wait
+        for a reply's first bytes (the worker's own time)."""
+        s, nbytes, n = {}, 0, 0
+        for w in fe.workers:
+            for f in w.frame_log:
+                n += 1
+                for side in ("send", "recv"):
+                    nbytes += f[side]["bytes"]
+                    for k, v in f[side].items():
+                        if k != "bytes":
+                            s[f"{side}.{k}"] = s.get(f"{side}.{k}", 0.0) + v
+        framed = sum(v for k, v in s.items() if k != "recv.wait_s")
+        return {"batches": n, "bytes": nbytes, "s": s, "framed_s": framed,
+                "share": framed / wall}
+
+    def workers_of(fe, wall):
+        return [{"wid": w.wid, "batches": w.batches,
+                 "served_requests": w.served_requests, "busy_s": w.busy_s,
+                 "busy_share": w.busy_s / wall, "init_s": w.init_s,
+                 "init_bytes": w.init_bytes, "init_send_s": w.init_send_s}
+                for w in fe.workers]
+
+    # ---- subprocess workers: a kill mid-batch, requeue, revive, timed ----
+    t0 = time.perf_counter()
+    fe = HEFrontend(params, evk, rks, ck, transport="subprocess",
+                    injector=FailureInjector(kill_worker_at={0: 2}), **kw)
+    sub = {"start_s": time.perf_counter() - t0,
+           "init": workers_of(fe, 1.0)}
+    try:
+        dead = fe.workers[0].transport.proc
+        got, sub["kill_drain_s"] = serve_stream(torch, fe, reqs, circs)
+        check_same(got, "subprocess frontend, worker 0 killed")
+        fr = fe.stats()["frontend"]
+        require(fr["deaths"] == 1 and fr["requeued_requests"] > 0
+                and fr["alive"] == MULTIHOST_WORKERS - 1
+                and dead.poll() is not None,
+                f"the kill did not take one worker down: {fr}")
+        sub["kill"] = {k: fr[k] for k in ("deaths", "requeued_requests")}
+        fe.injector = None
+        t0 = time.perf_counter()
+        fe.revive_workers()
+        sub["revive_s"] = time.perf_counter() - t0
+        sub["revive_init"] = workers_of(fe, 1.0)[0]
+        require(fe.stats()["frontend"]["alive"] == MULTIHOST_WORKERS
+                and fe.workers[0].transport.proc is not dead,
+                "revive_workers did not restore the worker")
+        got, sub["revived_drain_s"] = serve_stream(torch, fe, reqs, circs)
+        check_same(got, "subprocess frontend after revive_workers")
+        require(bool(fe.workers[0].keys_warm),
+                "the respawned worker took no batch")
+        print(f"multihost subprocess: worker 0 killed at its 2nd batch, "
+              f"{sub['kill']['requeued_requests']} requests requeued, "
+              f"results == phase 7 bit for bit; revived in "
+              f"{sub['revive_s']:.2f} s (init frame "
+              f"{sub['revive_init']['init_bytes'] / 1e6:.1f} MB), its "
+              f"batches == phase 7", flush=True)
+
+        # the timed run: the workers' counts set to 0 just before it and
+        # read just after
+        fe.reset_metrics()
+        fe.worker_stats(reset_launches=True)
+        got, sub["drain_s"] = serve_stream(torch, fe, reqs, circs)
+        snaps = fe.worker_stats()
+        check_same(got, "subprocess frontend")
+        sub["launches"] = {wid: {k: v for k, v in snap["kernels"].items()
+                                 if v} for wid, snap in snaps.items()}
+        sub_total = summed(*sub["launches"].values())
+        require(all(sub_total.get(k, 0) > 0 for k in SERVE_KERNELS),
+                f"a kernel never launched inside the workers: "
+                f"{sub['launches']}")
+        sub["workers"] = workers_of(fe, sub["drain_s"])
+        sub["transport"] = transport(fe, sub["drain_s"])
+        sub["mul_frames"] = frames(fe)
+        sub["per_op"] = {op: {"batches": d["batches"],
+                              "ms_per_batch": 1e3 * d["wall_s"]
+                              / d["batches"]}
+                         for op, d in fe.stats()["per_op"].items()}
+
+        # ---- a traced client over the subprocess frontend ----------------
+        session = HESession(params, sk, pk, evk, server=fe, device=dev)
+        rng = np.random.default_rng(29)
+        n = AFFINE_SLOTS
+        wz = 0.5 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+        handles, wants = [], []
+        for j in range(TRACED_EXPRS):
+            zt = 0.5 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+            x = session.encrypt(zt, seed=5555 + j)
+            handles.append(((x * x) * wz + x).rotate(1).conj().slot_sum())
+            wants.append(np.full(n, np.conj(np.roll(zt * zt * wz + zt,
+                                                    -1)).sum()))
+        reports = [analyze_handle(h, params, compiled=session.compile(h))
+                   for h in handles]
+        for j, r in enumerate(reports):
+            print(r.render(f"traced expression {j}"), flush=True)
+        flagged = any(r.errors or r.warnings for r in reports)
+        refused = None
+        if flagged:
+            # check="error" must refuse before anything is enqueued
+            try:
+                session.run(handles, check="error")
+            except ValueError as e:
+                refused = str(e)
+            require(refused is not None and not fe.queue.depth
+                    and not fe._circuits,
+                    "check='error' let a flagged run through")
+            print(f"check='error' refused the run, nothing enqueued: "
+                  f"{refused[:160]}", flush=True)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            futs = session.run(handles,
+                               check="warn" if flagged else "error")
+        t_err = []
+        for h, fut, want in zip(handles, futs, wants):
+            got_ct = fut.result()
+            cc = compile_handle(h, params, device=dev)
+            ref = C.execute_circuit_reference(cc.ops, cc.inputs, params,
+                                              evk=evk, rot_keys=rks,
+                                              conj_key=ck)
+            require(same_ct(got_ct, ref), "a traced result differs from "
+                    "execute_circuit_reference of its compiled ops")
+            t_err.append(float(np.abs(session.decrypt(got_ct)
+                                      - want).max()))
+        require(max(t_err) < 1e-2,
+                f"traced results decrypt {max(t_err):.3e} off (limit 1e-2)")
+        traced = {"expressions": TRACED_EXPRS, "slots": n,
+                  "reports": [r.to_dict() for r in reports],
+                  "check_error_refused": refused, "max_abs_err": t_err}
+        print(f"traced client over the subprocess frontend: "
+              f"{TRACED_EXPRS} expressions == execute_circuit_reference "
+              f"bit for bit, max |err| {max(t_err):.2e}", flush=True)
+    finally:
+        fe.close()
+
+    # ---- one subprocess worker, for the comparison ----------------------
+    fe1 = HEFrontend(params, evk, rks, ck, transport="subprocess",
+                     **{**kw, "workers": 1})
+    try:
+        serve_stream(torch, fe1, reqs, circs)                 # warm
+        got, one_wall = serve_stream(torch, fe1, reqs, circs)
+        check_same(got, "one subprocess worker")
+    finally:
+        fe1.close()
+
+    # ---- in-process workers on the card --------------------------------
+    fe2 = HEFrontend(params, evk, rks, ck, transport="inproc", **kw)
+    try:
+        got, _ = serve_stream(torch, fe2, reqs, circs)        # warm
+        check_same(got, "in-process frontend, first drain")
+        fe2.reset_metrics()
+        common.reset_launches()
+        got, inproc_wall = serve_stream(torch, fe2, reqs, circs)
+        inproc_launches = {k: v for k, v in common.LAUNCHES.items() if v}
+        check_same(got, "in-process frontend")
+        require(all(inproc_launches.get(k, 0) > 0 for k in SERVE_KERNELS),
+                f"a kernel never launched in the in-process workers: "
+                f"{inproc_launches}")
+        inproc = {"drain_s": inproc_wall, "launches": inproc_launches,
+                  "workers": workers_of(fe2, inproc_wall),
+                  "transport": transport(fe2, inproc_wall),
+                  "mul_frames": frames(fe2)}
+    finally:
+        fe2.close()
+    return {"phase_s": time.perf_counter() - phase_t0,
+            "subprocess": sub, "one_worker_drain_s": one_wall,
+            "inproc": inproc, "traced": traced,
+            "launches": summed(sub_total, inproc_launches)}
+
+
+def print_multihost(mh: dict, serving: dict) -> None:
+    """Phase 8's summary lines: drain walls, the mul batches' frames, the
+    workers."""
+    sub = mh["subprocess"]
+    print(f"multihost drain: subprocess {MULTIHOST_WORKERS} workers "
+          f"{sub['drain_s'] * 1e3:.1f} ms, 1 worker "
+          f"{mh['one_worker_drain_s'] * 1e3:.1f} ms, in-process "
+          f"{mh['inproc']['drain_s'] * 1e3:.1f} ms; phase 7's HEServer "
+          f"{serving['drain_s_median']['false'] * 1e3:.1f} ms (median, no "
+          f"overlap)", flush=True)
+    for kind, rows in (("subprocess", sub["mul_frames"]),
+                       ("in-process", mh["inproc"]["mul_frames"])):
+        for r in rows:
+            print(f"multihost {kind} mul batch (worker {r['wid']}): "
+                  f"frame out {r['send']['bytes'] / 1e6:.1f} MB, in "
+                  f"{r['recv']['bytes'] / 1e6:.1f} MB; "
+                  + ", ".join(f"{side}.{k} {v * 1e3:.2f} ms"
+                              for side in ("send", "recv", "worker")
+                              for k, v in r[side].items() if k != "bytes"),
+                  flush=True)
+    for kind, d in (("subprocess", sub), ("in-process", mh["inproc"])):
+        t = d["transport"]
+        print(f"multihost {kind} transport: {t['batches']} batches, "
+              f"{t['bytes'] / 1e6:.1f} MB framed; "
+              + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                          for k, v in sorted(t["s"].items()))
+              + f"; framing {t['framed_s'] * 1e3:.1f} ms = "
+              f"{t['share']:.1%} of the {d['drain_s'] * 1e3:.1f} ms drain",
+              flush=True)
+    for kind, ws in (("subprocess", sub["workers"]),
+                     ("in-process", mh["inproc"]["workers"])):
+        for w in ws:
+            print(f"multihost {kind} worker {w['wid']}: busy "
+                  f"{w['busy_share']:.1%} of the drain, "
+                  f"{w['served_requests']} requests; init "
+                  f"{w['init_s']:.2f} s from spawn to ack, its frame "
+                  f"{w['init_bytes'] / 1e6:.1f} MB written in "
+                  f"{w['init_send_s']:.2f} s", flush=True)
+    for wid, counts in sub["launches"].items():
+        print(f"multihost subprocess worker {wid} kernel launches: {counts}",
+              flush=True)
+    print(f"multihost in-process kernel launches: "
+          f"{mh['inproc']['launches']}; phase 8 took {mh['phase_s']:.1f} s",
+          flush=True)
 
 
 def profile(torch, fn) -> dict:
@@ -1283,6 +1576,11 @@ def main() -> int:
                                  path["pk"], evk)
     serving = drive_serving_path(torch, np, params, dev, common, path["sk"],
                                  path["pk"], evk, *circuit["keys"])
+    multihost = drive_multihost_path(torch, np, params, dev, common,
+                                     path["sk"], path["pk"], evk,
+                                     *circuit["keys"],
+                                     serving.pop("stream"))
+    print_multihost(multihost, serving)
     per_he_mul = {key: sum(n * r[key] for k, counts in
                            HE_MUL_SHAPE_LAUNCHES.items()
                            for n, r in zip(counts, per_kernel[k]))
@@ -1301,15 +1599,19 @@ def main() -> int:
             # on every path: phase 3 (one HE Mul and its neighbours),
             # phase 4 (the batched step's rungs), phase 6 (Galois keygen
             # and the circuits; the batched per-op steps), phase 7 (the
-            # served stream's first drain)
+            # served stream's first drain), phase 8 (the timed drains of
+            # the subprocess workers, counted inside them, and of the
+            # in-process workers)
             "launches": path["launches"][name] + batched["launches"][name]
             + circuit["launches"][name] + circuit["steps_launches"][name]
-            + serving["launches"][name],
+            + serving["launches"][name]
+            + multihost["launches"].get(name, 0),
             "main_path_launches": path["launches"][name],
             "batched_step_launches": batched["launches"][name],
             "circuit_path_launches": circuit["launches"][name],
             "per_op_steps_launches": circuit["steps_launches"][name],
             "serving_path_launches": serving["launches"][name],
+            "multihost_path_launches": multihost["launches"].get(name, 0),
             "he_mul_launches": path["he_mul_launches"].get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                + edges.get(name, [])),
@@ -1361,6 +1663,9 @@ def main() -> int:
     print(json.dumps({"serving": {
         "params": "paper_params(): logN=16 logQ=1200 beta=2^32",
         **serving, "card": card}}))
+    print(json.dumps({"multihost": {
+        "params": "paper_params(): logN=16 logQ=1200 beta=2^32",
+        **multihost, "card": card}}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,13 @@ class Ciphertext:
     logp: int
     n_slots: int
 
+    def to(self, device) -> "Ciphertext":
+        """This ciphertext on `device` (itself when it lies there already)."""
+        if self.ax.device == torch.device(device):
+            return self
+        return dataclasses.replace(self, ax=self.ax.to(device),
+                                   bx=self.bx.to(device))
+
 
 @dataclasses.dataclass
 class PublicKey:

@@ -22,6 +22,11 @@ on the card and streams batches of like requests through it.
   - metrics:   ServeMetrics, throughput / latency / flush causes.
   - server:    HEServer, the composed loop: submit_* / submit_circuit,
                poll / drain, stats.
+  - frontend, worker, transport: the multi-host tier — HEFrontend keeps
+               the serving core on the host and routes assembled
+               batches, as frames, to WorkerEngine workers (in this
+               process or in worker processes, each on the card), with
+               heartbeats, worker-death requeue and respawn.
 
 Usage::
 
@@ -40,11 +45,14 @@ Usage::
                                 inputs={"x": x})
     results = server.drain()                  # {rid or cid: Ciphertext}
 
-The multi-host tier (frontend, worker, transport) is not ported yet.
+Most users should not write CircuitOp lists by hand:
+`repro_torch.client`'s HESession/CipherHandle traces plain arithmetic and
+compiles it to these circuits.
 """
 
 from repro_torch.hserve import (  # noqa: F401
-    circuit, engine, metrics, queue, scheduler, server, tables,
+    circuit, engine, frontend, metrics, queue, scheduler, server, tables,
+    transport, worker,
 )
 from repro_torch.hserve.circuit import (  # noqa: F401
     CircuitOp, circuit_schedule, degree4_demo_circuit, validate_circuit,
@@ -56,9 +64,16 @@ from repro_torch.hserve.metrics import ServeMetrics  # noqa: F401
 from repro_torch.hserve.queue import (  # noqa: F401
     Batch, BatchAssembler, Request, RequestQueue,
 )
+from repro_torch.hserve.frontend import (  # noqa: F401
+    FrontendCatalog, HEFrontend, NoLiveWorkersError,
+)
 from repro_torch.hserve.scheduler import CircuitScheduler  # noqa: F401
 from repro_torch.hserve.server import HEServer  # noqa: F401
 from repro_torch.hserve.tables import PlainCache, TableCache  # noqa: F401
+from repro_torch.hserve.transport import (  # noqa: F401
+    InProcTransport, SubprocessTransport, WorkerDied,
+)
+from repro_torch.hserve.worker import WorkerEngine  # noqa: F401
 
 __all__ = [
     "HEServer", "OpEngine", "TableCache", "PlainCache", "ServeMetrics",
@@ -66,4 +81,7 @@ __all__ = [
     "CircuitOp", "validate_circuit", "circuit_schedule",
     "degree4_demo_circuit", "Inflight", "CircuitScheduler",
     "slot_sum_rotations",
+    "HEFrontend", "FrontendCatalog", "NoLiveWorkersError",
+    "WorkerEngine", "InProcTransport", "SubprocessTransport",
+    "WorkerDied",
 ]

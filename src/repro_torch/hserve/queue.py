@@ -344,6 +344,17 @@ class RequestQueue:
             del self._buckets[key]
         return out
 
+    def requeue(self, requests: List[Request]) -> None:
+        """Put already-validated requests back into their buckets (the
+        frontend's worker-death path: a dead worker's in-flight batch
+        returns whole). rids, t_submit, and the submitted/arrival
+        bookkeeping are all preserved — the requests were already
+        counted once, and circuit routing keys on the original rids.
+        Requeued requests append in batch order, so a re-served batch
+        pops in the order it originally flushed."""
+        for r in requests:
+            self._buckets.setdefault(r.bucket_key, deque()).append(r)
+
 
 class BatchAssembler:
     """Stack + zero-pad a same-bucket request list to the fixed shape, on

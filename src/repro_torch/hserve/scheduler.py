@@ -39,9 +39,8 @@ The scheduler NEVER changes results — it only reorders drain flushes
 and warms caches — so scheduled vs. unscheduled serving is bitwise
 identical.
 
-This is the JAX package's ``hserve/scheduler.py``. Its cost model
-(``analysis/cost.py``) is not ported yet, so ``cost_model`` takes only
-None, the pure lookahead policy.
+This is the JAX package's ``hserve/scheduler.py``; its cost model is
+``repro_torch.analysis.cost.CostModel``.
 """
 
 from __future__ import annotations
@@ -90,20 +89,30 @@ class CircuitScheduler:
     lookahead: horizon (in engine batches) within which a pending node
         counts as an expected sibling for its bucket; 0 disables
         deferral, larger values wait for deeper-chained siblings.
-    cost_model: must be None (the pure expected_within policy); the
-        reference's cost-gated deferral waits for its cost model's port.
+    cost_model: optional `repro_torch.analysis.cost.CostModel` consulted by
+        the deferral decision: deferring a bucket is only worth a drain
+        round trip when the padded batch it avoids actually costs
+        device time. Limb-cheap buckets (add/rescale/mod_down at µs
+        scale) flush immediately even with siblings coming — waiting
+        saves padding on an op whose whole batch is cheaper than the
+        bookkeeping. None (the default) keeps the pure
+        expected_within policy, bit-for-bit.
+    defer_min_s: the device-seconds a padded batch must waste before
+        deferral is worth it (only read when cost_model is set).
     """
 
-    def __init__(self, lookahead: int = 2, *, cost_model=None):
+    def __init__(self, lookahead: int = 2, *, cost_model=None,
+                 defer_min_s: float = 1e-3):
         if lookahead < 0:               # not assert: gone under python -O
             raise ValueError(f"lookahead must be >= 0, got {lookahead}")
-        if cost_model is not None:
-            raise ValueError("cost_model is not ported yet; pass None")
         self.lookahead = lookahead
+        self.cost_model = cost_model
+        self.defer_min_s = defer_min_s
         self._circ: Dict[int, _SchedCircuit] = {}
         # pending (registered, not yet enqueued) nodes per bucket key
         self._expected: Dict[BucketKey, Set[Tuple[int, int]]] = {}
         self.deferrals = 0
+        self.cost_skips = 0             # deferrals skipped as too cheap
         self.prefetches = 0
         self.prefetched_levels: Set[int] = set()
 
@@ -170,10 +179,31 @@ class CircuitScheduler:
                 n += 1
         return n
 
+    def _worth_deferring(self, key: BucketKey, depth: int,
+                         batch: int) -> bool:
+        """Cost-model gate on deferral: is the padding this bucket
+        would waste worth a drain round trip? Without a cost model,
+        always yes (the pre-cost-model policy, bit-for-bit). With one,
+        the padded lanes' estimated device-seconds must reach
+        defer_min_s — an under-full add bucket at 2 limbs pads
+        microseconds and should just flush."""
+        if self.cost_model is None:
+            return True
+        op, logq = key[0], key[1]
+        n_slots = key[2] if op == "slot_sum" else None
+        pad_s = (batch - depth) * self.cost_model.op_seconds(
+            op, logq, n_slots=n_slots)
+        if pad_s >= self.defer_min_s:
+            return True
+        self.cost_skips += 1
+        return False
+
     def drain_key(self, queue, batch: int) -> Optional[BucketKey]:
         """The drain flush's bucket choice: oldest non-empty bucket with
         no expected siblings within the lookahead horizon; under-full
-        buckets with siblings coming are deferred (counted). PROGRESS
+        buckets with siblings coming are deferred (counted) — IF the
+        cost model (when configured) says the avoided padding is worth
+        device time (see :meth:`_worth_deferring`). PROGRESS
         GUARANTEE: if every non-empty bucket is deferred, the oldest
         flushes anyway — the sibling's parents sit in the queue or in
         flight, and deferring everything would stall drain() forever
@@ -184,7 +214,8 @@ class CircuitScheduler:
         for k, depth in depths.items():
             if fallback is None:
                 fallback = k
-            if depth < batch and self.expected_within(k):
+            if depth < batch and self.expected_within(k) \
+                    and self._worth_deferring(k, depth, batch):
                 self.deferrals += 1
                 continue
             return k
@@ -247,15 +278,17 @@ class CircuitScheduler:
         window — HEServer.reset_metrics calls this); registered circuit
         schedules are kept."""
         self.deferrals = 0
+        self.cost_skips = 0
         self.prefetches = 0
         self.prefetched_levels = set()
 
     def stats(self) -> dict:
         return {
             "lookahead": self.lookahead,
-            "cost_model": False,
+            "cost_model": self.cost_model is not None,
             "circuits_tracked": len(self._circ),
             "deferrals": self.deferrals,
+            "cost_skips": self.cost_skips,
             "prefetches": self.prefetches,
             "prefetched_levels": sorted(self.prefetched_levels),
         }

@@ -130,8 +130,11 @@ class HEServer:
             slices behind the in-flight batch. Mutable attribute, so
             benchmarks can A/B it on one warm server.
     lookahead: the scheduler's sibling horizon in engine batches.
-    cost_model: must be None (the scheduler's cost model is not ported
-            yet).
+    cost_model: optional `repro_torch.analysis.cost.CostModel` — gates
+            the scheduler's deferrals on estimated padded-batch device
+            time (limb-cheap buckets flush immediately instead of
+            waiting on siblings). Mutable via
+            ``server.scheduler.cost_model``. None = pure lookahead policy.
     prefetch: table-slice prefetch on/off (only active under schedule).
     plain_cache_mib: LRU budget for the (hash, level) plaintext-operand
             cache (None = unbounded) — one-shot per-request operands
@@ -208,8 +211,9 @@ class HEServer:
         """The engine-free serving core: queue + scheduler + circuit
         state + metrics plane, kept apart from the TableCache/OpEngine so
         that a multi-host frontend (which routes batches to worker
-        engines instead) can share it, as the reference's does. Expects
-        `self.cache` to be set already."""
+        engines instead, `repro_torch.hserve.frontend.HEFrontend`) can
+        share it, as the reference's does. Expects `self.cache` to be set
+        already."""
         self.params = params
         self.device = device
         self.batch = batch
@@ -254,7 +258,8 @@ class HEServer:
         """Re-point the trace sink everywhere at once (engine + table
         cache + the profile-mode stage timer follow the server's)."""
         self._tracer = t
-        self.engine.tracer = t
+        if self.engine is not None:
+            self.engine.tracer = t
         self.cache.tracer = t
 
     # ---- request intake --------------------------------------------------

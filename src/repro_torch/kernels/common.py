@@ -3,6 +3,9 @@
 The sources under ``csrc/`` are compiled at first use with ``nvcc`` for
 ``sm_90a`` — one object per source, all compiled in parallel — and linked
 into one shared library with a plain C interface, loaded with ``ctypes``.
+Processes that build at once (cold workers started together) serialize on
+an ``flock`` of ``build.lock`` beside the objects: one compiles, the
+others then load its library.
 The library lands in ``build/repro_torch_kernels/<hash of the sources>/``
 at the root of the checkout, beside ``build.log`` (what ``ptxas -v`` said:
 registers, shared memory and spills per kernel).
@@ -15,6 +18,7 @@ and then adds one to the kernel's count in :data:`LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -79,6 +83,18 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
+    # processes that start cold together (a pool of workers) take turns:
+    # the first builds, the others wait here and then find the library
+    with open(out_dir / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            _compile(files, out_dir, lib)
+    return lib
+
+
+def _compile(files: list, out_dir: Path, lib: Path) -> None:
+    """nvcc each .cu of `files` into out_dir in parallel, then link `lib`
+    (replaced atomically); raises with the build log on failure."""
     nvcc = _nvcc()
     sources = [f for f in files if f.suffix == ".cu"]
     procs = [(src, subprocess.Popen(
@@ -99,7 +115,6 @@ def build() -> Path:
                     *[str(out_dir / f"{s.stem}.o") for s in sources]],
                    check=True, capture_output=True)
     os.replace(tmp, lib)
-    return lib
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

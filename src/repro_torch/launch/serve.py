@@ -1,20 +1,19 @@
 """The paper's own workload as a serving entry point: a batched HE
 request stream through :class:`repro_torch.hserve.HEServer` (queue →
-level-aware table cache → engine → metrics), on one device.
+level-aware table cache → engine → metrics) on one device, or through the
+multi-host tier (:class:`repro_torch.hserve.HEFrontend` and its workers),
+driven by a :class:`repro_torch.client.HESession`.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --he --batch 4 \\
         --requests 24 --levels 3 --rotations 4 --conjugations 2 \\
         [--plain-frac 0.25] [--circuit] [--schedule] [--max-age-s 0.05] \\
         [--overlap] [--no-kernels] [--trace T.json] [--profile-stages] \\
-        [--metrics M.json] [--device cuda]
+        [--metrics M.json] [--traced 2] [--check off|warn|error] \\
+        [--workers 2 --transport inproc|subprocess] [--device cuda]
 
 This is the JAX package's ``launch/serve.py`` ``serve_he``, at its SMOKE
-parameters. It makes keys with the port's ``keygen``/``rot_keygen``/
-``conj_keygen`` and encrypts with ``core.heaan``, calling HEServer
-directly where the reference drives a client session. Not ported yet:
-``--traced`` and ``--check`` (the client and the static analyzer),
-``--workers`` (the multi-host tier), ``--model-shards`` (the batched step
-across ranks), ``--bootstrap``, and the LM serving path.
+parameters. Not ported yet: ``--model-shards`` (the batched step across
+ranks), ``--bootstrap`` (ROADMAP A9), and the LM serving path.
 """
 
 from __future__ import annotations
@@ -25,12 +24,12 @@ import json
 import numpy as np
 import torch
 
+from repro_torch.client import HESession
 from repro_torch.core import heaan as H
 from repro_torch.core.context import resolve_device
 from repro_torch.core.keys import keygen
 from repro_torch.core.params import HEParams, test_params
-from repro_torch.core.rotate import conj_keygen, rot_keygen
-from repro_torch.hserve import HEServer, degree4_demo_circuit
+from repro_torch.hserve import HEFrontend, degree4_demo_circuit
 from repro_torch.obs import Tracer
 
 __all__ = ["SMOKE", "serve_he", "main"]
@@ -43,12 +42,15 @@ def serve_he(batch: int, requests: int = 0, levels: int = 1,
              rotations: int = 0, conjugations: int = 0,
              plain_frac: float = 0.0, use_kernels: bool = True,
              max_age_s: float | None = None, overlap: bool = False,
-             circuit: bool = False, schedule: bool = False, seed: int = 0,
+             circuit: bool = False, schedule: bool = False,
+             traced: int = 0, check: str = "off", seed: int = 0,
              trace: str | None = None, profile_stages: bool = False,
-             metrics: str | None = None,
+             metrics: str | None = None, workers: int = 0,
+             transport: str = "inproc",
              device: str | torch.device = "cuda") -> dict:
     """Batched multi-level HE serving on `device` (default the card; raises
-    without CUDA).
+    without CUDA), driven through an HESession (keygen, encrypt/decrypt;
+    the raw per-op stream rides `session.server`).
 
     Submits a mixed stream of HE-Mul / rotate / conjugate requests spread
     over `levels` moduli — `plain_frac` of the mul share served as the
@@ -56,8 +58,19 @@ def serve_he(batch: int, requests: int = 0, levels: int = 1,
     `circuit`, a whole degree-4 encrypted polynomial circuit via
     submit_circuit (TWO staggered copies under `schedule`, exercising the
     circuit-aware scheduler's cross-circuit co-batching and table
-    prefetch). Drains the queue with padded batching and decrypts every
-    result against numpy. Returns the server's stats plus `max_err`.
+    prefetch), plus, with `traced` > 0, that many TRACED client
+    expressions (every handle op, no explicit level management — the
+    compile pass inserts it) sharing one weight vector, so every
+    expression after the first ships hash-only plaintext operands. With
+    `check` ("warn" or "error") the static analyzer checks the demo
+    circuit and every traced one before submission. Drains the queue with
+    padded batching and decrypts every result against numpy. Returns the
+    server's stats plus `max_err`.
+
+    `workers` > 0 serves the same stream through the multi-host tier: an
+    HEFrontend on the host routing batches to that many workers on
+    `device`, in this process (`transport="inproc"`) or in worker
+    processes ("subprocess"). Bit for bit the single-server path.
 
     `trace` writes a Chrome trace-event JSON of the request lifecycle and
     engine spans to that path (`python -m repro_torch.obs report PATH`);
@@ -79,26 +92,56 @@ def serve_he(batch: int, requests: int = 0, levels: int = 1,
         raise ValueError(
             "--rotations + --conjugations cannot exceed --requests")
     tracer = Tracer() if trace else None
-    sk, pk, evk = keygen(params, seed=0, device=dev)
-    rot_keys = {1: rot_keygen(params, sk, 1, device=dev)} if rotations \
-        else None
-    conj_key = conj_keygen(params, sk, device=dev) \
-        if conjugations or circuit else None
-    server = HEServer(params, evk, rot_keys, conj_key, device=dev,
-                      batch=batch, use_kernels=use_kernels,
-                      max_age_s=max_age_s, overlap=overlap,
-                      schedule=schedule, tracer=tracer,
-                      profile_stages=profile_stages)
+    if workers > 0:
+        if profile_stages or overlap:
+            raise ValueError(
+                "--profile-stages/--overlap are single-server knobs; "
+                "the multi-host frontend pipelines across workers "
+                "instead of double-buffering one engine")
+        sk, pk, evk = keygen(params, seed=0, device=dev)
+        frontend = HEFrontend(
+            params, evk, batch=batch, workers=workers,
+            transport=transport, worker_device=str(dev),
+            use_kernels=use_kernels, max_age_s=max_age_s,
+            schedule=schedule, tracer=tracer)
+        session = HESession(params, sk, pk, evk, server=frontend,
+                            device=dev)
+    else:
+        session = HESession(params, seed=0, device=dev, batch=batch,
+                            use_kernels=use_kernels, max_age_s=max_age_s,
+                            overlap=overlap, schedule=schedule,
+                            tracer=tracer, profile_stages=profile_stages)
+    try:
+        return _serve(session, params, requests, levels, rotations,
+                      conjugations, plain_frac, circuit, schedule, traced,
+                      check, seed, tracer, trace, metrics)
+    finally:
+        if workers > 0:
+            session.server.close()
+
+
+def _serve(session, params, requests, levels, rotations, conjugations,
+           plain_frac, circuit, schedule, traced, check, seed, tracer,
+           trace, metrics) -> dict:
+    server = session.server
+    sdev = server.device
+    if rotations:
+        session.ensure_rotation_keys([1])
+    if conjugations or circuit:
+        session.ensure_conj_key()
 
     rng = np.random.default_rng(seed)
     n = params.n_slots_max
     logqs = [params.logQ - i * params.logp for i in range(levels)]
     expect = {}   # rid -> (op, expected slots)
+    n_mul = requests - rotations - conjugations
     n_plain = int(round(plain_frac * n_mul))
 
     def encrypt(z, s, logq):
-        ct = H.encrypt_message(z, pk, params, seed=s)
-        return H.he_mod_down(ct, params, logq) if logq < params.logQ else ct
+        ct = session.encrypt(z, seed=s).ciphertext
+        if logq < params.logQ:
+            ct = H.he_mod_down(ct, params, logq)
+        return session.to_server(ct)
 
     for i in range(requests):
         logq = logqs[i % levels]
@@ -108,7 +151,7 @@ def serve_he(batch: int, requests: int = 0, levels: int = 1,
             # plaintext-operand ops: encode-only operand, region-1
             # product / bx add — no key switch, no key material
             w = rng.normal(size=n) + 1j * rng.normal(size=n)
-            pt = H.encode_plain(w, params, logq, device=dev)
+            pt = H.encode_plain(w, params, logq, device=sdev)
             if i % 2 == 0:
                 expect[server.submit_mul_plain(ct, pt)] = \
                     ("mul_plain", z * w)
@@ -130,21 +173,55 @@ def serve_he(batch: int, requests: int = 0, levels: int = 1,
         # conj(x⁴) + x. Under `schedule` a second, STAGGERED copy rides
         # along so the cross-circuit co-batching is exercised.
         ops, _ = degree4_demo_circuit(params)
+        if check != "off":
+            # check the hand-built circuit before submitting it (the
+            # traced path runs the same analyzer inside session.run)
+            from repro_torch.analysis import analyze_circuit
+            report = analyze_circuit(
+                ops, {"x": (params.logQ, params.logp)}, params,
+                input_nslots={"x": n})
+            print(report.render("degree4 circuit"))
+            if check == "error" and not report.ok:
+                raise ValueError("static analysis rejected the demo "
+                                 "circuit: " + "; ".join(
+                                     d.format() for d in report.errors))
         for j in range(2 if schedule else 1):
             zc = rng.normal(size=n) + 1j * rng.normal(size=n)
-            x = H.encrypt_message(zc, pk, params, seed=7777 + j)
+            x = session.to_server(session.encrypt(zc, seed=7777 + j)
+                                  .ciphertext)
             cid = server.submit_circuit(ops, inputs={"x": x})
             expect[cid] = ("circuit", np.conj(zc ** 4) + zc)
             if schedule and j == 0:       # desync the two circuits
                 results.update(dict(server.poll(flush=True)))
 
-    results.update(server.drain())
+    tfuts = []
+    if traced:
+        # the session API end to end: every traced op, NO explicit
+        # rescale/mod_down (the compile pass inserts level management),
+        # one shared weight vector — every expression after the first
+        # compiles to hash-only plain operands (server-cache hits)
+        wz = 0.5 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+        for j in range(traced):
+            zt = 0.5 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+            x = session.encrypt(zt, seed=5555 + j)
+            tfuts.append(
+                (session.run([((x * x) * wz + x)
+                              .rotate(1).conj().slot_sum()],
+                             check=check)[0],
+                 np.full(n, np.conj(np.roll(zt * zt * wz + zt,
+                                            -1)).sum())))
+
+    # session.drain (not server.drain) so traced futures resolve while
+    # the raw per-op/circuit results come back as {rid: ct}
+    results.update(session.drain())
     errs = []
     for rid, (op, want) in expect.items():
         out = results[rid]
         if op in ("mul", "mul_plain"):
             out = H.rescale(out, params)
-        errs.append(float(np.abs(H.decrypt_message(out, sk, params)
+        errs.append(float(np.abs(session.decrypt(out) - want).max()))
+    for fut, want in tfuts:
+        errs.append(float(np.abs(session.decrypt(fut.result())
                                  - want).max()))
     stats = server.stats()
     stats["max_err"] = max(errs)
@@ -194,6 +271,26 @@ def main(argv=None) -> None:
                     help="route the HE stages through the CUDA kernels "
                          "(default; --no-kernels runs the plain torch "
                          "versions on the device)")
+    ap.add_argument("--traced", type=int, default=0,
+                    help="also run this many TRACED repro_torch.client "
+                         "expressions (every handle op, auto level "
+                         "management) through the session; they share "
+                         "one weight vector, so runs after the first hit "
+                         "the server's plaintext-operand cache")
+    ap.add_argument("--check", default="off",
+                    choices=["off", "warn", "error"],
+                    help="static-analyze circuits before submission "
+                         "(repro_torch.analysis): 'warn' prints findings, "
+                         "'error' refuses to submit on errors/warnings")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="serve through the multi-host tier: an HEFrontend "
+                         "routing batches by (op, level) affinity to this "
+                         "many workers on --device, with heartbeat health "
+                         "and worker-death requeue (0 = single HEServer)")
+    ap.add_argument("--transport", default="inproc",
+                    choices=["inproc", "subprocess"],
+                    help="with --workers: workers in this process, or "
+                         "worker processes speaking frames over pipes")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome trace-event JSON of the request "
@@ -218,23 +315,38 @@ def main(argv=None) -> None:
                      circuit=args.circuit, schedule=args.schedule,
                      seed=args.seed, trace=args.trace,
                      profile_stages=args.profile_stages,
-                     metrics=args.metrics, device=args.device)
+                     metrics=args.metrics, traced=args.traced,
+                     check=args.check, workers=args.workers,
+                     transport=args.transport, device=args.device)
     ops = ", ".join(
         f"{op}: {d['requests']} reqs @ {d['ops_per_s']}/s "
         f"(p50 {d['latency_ms']['p50']}ms, "
         f"p99 {d['latency_ms']['p99']}ms, pad {d['pad_frac']})"
         for op, d in stats["per_op"].items())
-    print(f"hserve batch={stats['batch']} on {stats['device']} "
+    # with workers the ops run on the workers' device; the frontend's own
+    # device is only the host tier that frames them
+    where = (f"{stats['frontend']['worker_device']} workers (host tier "
+             f"{stats['device']})" if args.workers else stats["device"])
+    print(f"hserve batch={stats['batch']} on {where} "
           f"levels={stats['levels_served']} "
           f"steps_compiled={stats['engine']['steps_compiled']} "
           f"(first runs {stats['engine']['compile_s']}s)")
     print(f"  {ops}")
+    if args.workers:
+        fr = stats["frontend"]
+        print(f"  frontend: {fr['workers']} {fr['transport']} worker(s) on "
+              f"{fr['worker_device']}, {fr['alive']} alive, "
+              f"{fr['deaths']} death(s), {fr['requeued_requests']} requeued")
     if args.schedule:
         sch, cb = stats["scheduler"], stats["cobatch"]
         print(f"  scheduler: lookahead={sch['lookahead']} "
               f"deferrals={sch['deferrals']} "
               f"prefetched_levels={sch['prefetched_levels']} "
               f"cross_circuit_rate={cb['cross_circuit_rate']}")
+    if args.traced:
+        c = stats["cache"]
+        print(f"  plaintext cache: {c['plain_hits']} hits / "
+              f"{c['plain_misses']} misses ({c['plain_entries']} entries)")
     if args.profile_stages:
         for op, row in sorted(stats["stages"]["stages"].items()):
             tot = sum(row.values())

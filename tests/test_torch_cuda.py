@@ -567,3 +567,70 @@ def test_cuda_served_stream_equals_plain_path_server(dev, overlap):
     res = server.drain()
     ref = H.he_mul(c[0], c[1], evk, p)
     assert torch.equal(res[rids[0]].ax, ref.ax)
+
+
+@pytest.mark.parametrize("transport", ["inproc", "subprocess"])
+def test_cuda_frontend_equals_heserver(dev, transport):
+    """An HEFrontend on the host with two workers on the card (in this
+    process, or worker processes that count their own launches) serves
+    muls at two levels, a rotate, a conjugate and the degree-4 circuit
+    word for word as HEServer on the card, also with worker 0 killed
+    mid-batch; every kernel launches inside the workers."""
+    from repro_torch.core.rotate import conj_keygen, rot_keygen
+    from repro_torch.hserve import HEFrontend, HEServer, degree4_demo_circuit
+    from repro_torch.runtime import FailureInjector
+    p = small_params()
+    sk, pk, evk = keygen(p, seed=3, device=dev)
+    rks, ck = {1: rot_keygen(p, sk, 1, device=dev)}, \
+        conj_keygen(p, sk, device=dev)
+    rng = np.random.default_rng(13)
+    cts = [H.encrypt_message(rng.random(4) + 1j * rng.random(4), pk, p,
+                             seed=70 + i) for i in range(4)]
+    low = [H.he_mod_down(c, p, p.logQ - p.logp) for c in cts]
+    ops, _ = degree4_demo_circuit(p)
+
+    def stream(s, on):
+        rids = [s.submit_mul(on(a), on(b)) for a, b in
+                zip(cts + low, cts[1:] + cts[:1] + low[1:] + low[:1])]
+        rids += [s.submit_rotate(on(cts[0]), 1),
+                 s.submit_conjugate(on(cts[1])),
+                 s.submit_circuit(ops, {"x": on(cts[2])})]
+        res = s.drain()
+        return [res[r] for r in rids]
+
+    want = stream(HEServer(p, evk, rks, ck, device=dev, batch=2),
+                  lambda c: c)
+    for inj in (None, FailureInjector(kill_worker_at={0: 1})):
+        fe = HEFrontend(p, evk, rks, ck, workers=2, transport=transport,
+                        batch=2, injector=inj)
+        try:
+            fe.worker_stats(reset_launches=True)
+            got = stream(fe, lambda c: c.to("cpu"))
+            for a, b in zip(got, want):
+                assert (a.logq, a.logp) == (b.logq, b.logp)
+                assert torch.equal(a.ax, b.ax.cpu())
+                assert torch.equal(a.bx, b.bx.cpu())
+            assert fe.stats()["frontend"]["deaths"] == (inj is not None)
+            launched = {}
+            for snap in fe.worker_stats().values():
+                for k, v in snap["kernels"].items():
+                    launched[k] = launched.get(k, 0) + v
+            assert all(launched[k] > 0
+                       for k in ("crt", "ntt", "intt", "icrt", "modmul"))
+        finally:
+            fe.close()
+
+
+def test_cuda_worker_init_raises_without_its_card(dev):
+    """A worker asked for a card the machine does not have fails its
+    init — in a worker process at the ack, in this process at the
+    engine's construction. Nothing carries on on the CPU."""
+    from repro_torch.hserve import HEFrontend, WorkerDied, WorkerEngine
+    p = small_params()
+    _, _, evk = keygen(p, seed=3, device=dev)
+    missing = f"cuda:{torch.cuda.device_count()}"
+    with pytest.raises(WorkerDied, match="failed init"):
+        HEFrontend(p, evk, workers=1, transport="subprocess",
+                   worker_device=missing)
+    with pytest.raises(RuntimeError):
+        WorkerEngine(p, evk, device=missing)

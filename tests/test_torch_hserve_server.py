@@ -281,8 +281,6 @@ def test_stats_agree_on_every_deterministic_field(world, stream):
         got = world["streams"][stream == "ops overlapped"]
         tst, jst = got["port"][1], got["jax"][1]
     t, j = _deterministic(tst), _deterministic(jst)
-    # the port's scheduler has no cost model: one key fewer
-    j["scheduler"].pop("cost_skips")
     assert t == j
     # latencies come from the shared fake clock: equal too
     for op in tst["per_op"]:

@@ -39,6 +39,13 @@ def test_no_module_of_the_port_imports_jax_or_repro():
                  "repro_torch.hserve.server", "repro_torch.hserve.tables",
                  "repro_torch.hserve.scheduler", "repro_torch.hserve.queue",
                  "repro_torch.obs.stages", "repro_torch.obs.report",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.runtime.monitor",
+                 "repro_torch.runtime.failures",
+                 "repro_torch.hserve.transport", "repro_torch.hserve.worker",
+                 "repro_torch.hserve.frontend", "repro_torch.client.handles",
+                 "repro_torch.client.compile", "repro_torch.client.session",
+                 "repro_torch.client.testing", "repro_torch.analysis.noise",
+                 "repro_torch.analysis.rules", "repro_torch.analysis.cost",
+                 "repro_torch.analysis.analyzer"):
         assert name in got["modules"]
     assert got["bad"] == []

@@ -453,3 +453,56 @@ def test_core_crt_and_icrt_strategies_match_reference():
     _assert_all_equal(icrt_ref(_t(r), icrt_inputs(tt, tg), out_limbs), want)
     with pytest.raises(ValueError):
         t_core_crt.icrt(*targs, strategy="columns")
+
+
+_NVCC_STUB = """
+import sys, time
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+link = "-shared" in args
+with open({log!r}, "a") as f:
+    f.write(("link " if link else "compile ") + out + "\\n")
+time.sleep(0.5)
+with open(out, "wb") as f:
+    f.write(b"".join(open(a, "rb").read() for a in args if a.endswith(".o"))
+            if link else b"object of " + out.encode())
+"""
+
+_BUILD_PROBE = """
+import json, sys
+from pathlib import Path
+from repro_torch.kernels import common
+common.BUILD_ROOT = Path(sys.argv[1])
+print(json.dumps(str(common.build())))
+"""
+
+
+def test_build_is_safe_when_processes_start_cold_together(tmp_path):
+    """Two processes run build() on a cold cache at once, against a stub
+    nvcc found through CUDA_HOME (common._nvcc): one compiles each source
+    and links once, the other waits on the build lock and returns the
+    same library."""
+    import json
+    import os
+    import subprocess
+    import sys
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(f"#!{sys.executable}\n" + _NVCC_STUB.format(log=str(log)))
+    nvcc.chmod(0o755)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUDA_HOME=str(tmp_path / "cuda"),
+               PYTHONPATH=os.path.join(repo, "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _BUILD_PROBE, str(tmp_path / "build")],
+        stdout=subprocess.PIPE, text=True, env=env) for _ in range(2)]
+    libs = [json.loads(p.communicate(timeout=120)[0]) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0]
+    assert libs[0] == libs[1] and os.path.isfile(libs[0])
+    sources = sorted(common.CSRC.glob("*.cu"))
+    calls = log.read_text().splitlines()
+    assert sorted(c.split()[0] for c in calls) == \
+        ["compile"] * len(sources) + ["link"]
+    with open(libs[0], "rb") as f:        # the link of every object
+        assert f.read().count(b"object of ") == len(sources)
