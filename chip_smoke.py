@@ -102,6 +102,36 @@ Phases; any failure exits non-zero and prints no result:
    bytes and seconds, each worker's busy share, init seconds and bytes,
    and kernel launches.
 
+9. Bootstrapping (``repro_torch.boot``), served. 9a, the reference config
+   ``boot_params()`` (logN 4, logQ 336, logp 24, h 2): an HEServer
+   (batch BOOT_BATCH, the scheduler on, a Tracer) holding only the evk,
+   an HESession over it that mints the plan's Galois keys; with the launch
+   counts set to 0 just before and read just after, two concurrent
+   ``session.bootstrap`` calls on exhausted ciphertexts (logq = logp) and
+   one ``session.run([x * x], bootstrap="auto")``, all in one drain; every
+   kernel must have launched. Each refreshed ciphertext equals
+   ``execute_circuit_reference`` of the plan on the plain path bit for
+   bit and decrypts within ``plan.error_bound()``; x·x equals the plain
+   path's bootstrap → he_mul → rescale and decrypts within 4 ·
+   msg_bound · bound; the bootstraps co-batch across circuits; the
+   ``boot.*`` spans cover the four stages; the refreshed ciphertext runs
+   mul → rescale → mul served bit for bit against the core ops; a warm
+   pair is traced by torch.profiler (device busy share). 9b,
+   ``boot_params(logN=10)`` (3251 nodes, 46 rotation keys + conj): plan
+   build and key minting timed; one bootstrap alone, then a concurrent
+   pair (the lone input again beside a second) with every dispatch
+   under ``torch.cuda.set_sync_debug_mode("error")``, each drain with
+   the counts set to 0 before and read after (every kernel launched) and
+   its ``_submit_ready`` scan timed;
+   all three equal the plain path bit for bit and decrypt below
+   BOOT_USABLE (the reference's ``error_bound()`` is reported beside:
+   at this ring it does not hold); printed: drains, batches, co-batch
+   rate, plaintext-cache entries and MiB, launches. 9c: every kernel and
+   variant against its plain version at every level the two plans visit
+   (N = 16 and 1024, logq 24..336, B = 1 and BATCH), at keygen's shapes,
+   and iCRT's and CRT's edge inputs there; the top level's kernel shapes
+   timed.
+
 Before the last line it prints the nvidia-smi line, one JSON line of
 per-kernel numbers (``{"kernels": [...]}``: the headline times are those
 of ``headline_shape``, HE Mul's region 1 for a kernel and the batched
@@ -109,7 +139,8 @@ step's first shape for a variant; every shape is under ``shapes``) and JSON
 lines for HE Mul's times, the batched step's and their traces;
 the circuit path's JSON line, the serving JSON line
 (``{"serving": {...}}``), the multi-host JSON line (``{"multihost":
-{...}}``) and the nvidia-smi line again; the last line
+{...}}``), the bootstrap JSON line (``{"bootstrap": {...}}``) and the
+nvidia-smi line again; the last line
 is ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -179,6 +210,14 @@ SERVE_KERNELS = ("modmul", "ntt", "intt", "crt", "icrt")
 # client expressions
 MULTIHOST_WORKERS = 2
 TRACED_EXPRS = 2
+# Phase 9, bootstrapping: the reference config's server batch (its tests'),
+# and the error line at logN 10. There the reference's error_bound() does
+# not hold (it leaves out the noise the dense BSGS transforms add), so the
+# served results are held to the reference's own line for a contract that
+# still promises usable precision (tests/test_boot.py: above 2^-6 a
+# contract "promises no precision"), and the bound is reported beside it.
+BOOT_BATCH = 2
+BOOT_USABLE = 2.0 ** -6
 SOURCES = {
     "modmul": ("kernels/csrc/modmul.cu",
                "src/repro/kernels/modmul/modmul.py:33"),
@@ -428,12 +467,13 @@ def _shape_cases(torch, np, params, dev, modmul, ntt, crt, icrt,
     return cases
 
 
-def edge_shapes(params) -> tuple[list, list]:
+def edge_shapes(params, levels=None) -> tuple[list, list]:
     """The iCRT shapes (np, out limbs) and CRT shapes (K, np) of every
     level phase 2 checks (kernel_cases at logQ and each of
-    circuit_levels()) and of keygen (keygen_kernel_cases)."""
+    circuit_levels(), or at `levels`) and of keygen
+    (keygen_kernel_cases)."""
     icrt, crt = [], []
-    for logq in (params.logQ, *circuit_levels(params)):
+    for logq in levels or (params.logQ, *circuit_levels(params)):
         K, np1, np2, ks_limbs = level_shapes(params, logq)
         icrt += [(np1, K), (np2, ks_limbs)]
         crt += [(K, np1), (K, np2)]
@@ -516,11 +556,12 @@ def crt_edge_cases(torch, np, params, dev, shapes):
     return cases
 
 
-def check_edges(torch, np, params, dev) -> dict:
-    """Phase 2, the edge inputs of iCRT and of CRT and its variants at
-    every shape of edge_shapes(): each kernel equals its plain version.
-    Returns kernel -> rows."""
-    icrt_shapes, crt_shapes = edge_shapes(params)
+def check_edges(torch, np, params, dev, levels=None,
+                verbose=True) -> dict:
+    """Phase 2 (and 9c, at `levels`), the edge inputs of iCRT and of CRT
+    and its variants at every shape of edge_shapes(): each kernel equals
+    its plain version. Returns kernel -> rows."""
+    icrt_shapes, crt_shapes = edge_shapes(params, levels)
     cases = [("icrt", *c) for c in icrt_edge_cases(torch, np, params, dev,
                                                    icrt_shapes)]
     rows: dict = {}
@@ -534,7 +575,8 @@ def check_edges(torch, np, params, dev) -> dict:
                 f"(max abs err {err})")
         rows.setdefault(name, []).append({"input": label,
                                           "max_abs_err": err})
-        print(f"kernel {name} edge {label}: bitwise ok", flush=True)
+        if verbose:
+            print(f"kernel {name} edge {label}: bitwise ok", flush=True)
     return rows
 
 
@@ -1490,6 +1532,299 @@ def print_multihost(mh: dict, serving: dict) -> None:
           flush=True)
 
 
+def boot_levels(plan) -> list:
+    """Every level a bootstrap plan visits: its input's and each node's
+    output's, from logq_in up to the raise target."""
+    return sorted({plan.logq_in} | {lq for lq, _ in plan.meta})
+
+
+def check_boot_kernels(torch, np, params, dev, levels, flush) -> dict:
+    """Phase 9c: every kernel and variant against its plain version at
+    each level of `levels` of a bootstrap ring (B = 1 and BATCH), at
+    keygen's shapes, and on iCRT's and CRT's edge inputs at all of them;
+    the top level's kernel shapes are also timed."""
+    rows, n_cases = {}, 0
+    cases = [(logq, c) for logq in levels
+             for c in kernel_cases(torch, np, params, dev, logq)]
+    cases += [("keygen", c) for c in keygen_kernel_cases(torch, np, params,
+                                                         dev)]
+    for level, (name, shape, kern, plain, nbytes, nmul, _) in cases:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max().item())
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"logN={params.logN} logq={level} {name} {shape}: kernel "
+                f"differs from its plain version (max abs err {err})")
+        n_cases += 1
+        if level == params.logQ and "_" not in name:
+            b_ms, b_by = bound_ms(nbytes, nmul)
+            rows.setdefault(name, []).append({
+                "shape": shape, "level": level,
+                "batch": BATCH if "B=" in shape else 1, "max_abs_err": err,
+                "ms": time_ms(torch, kern, 20, flush),
+                "plain_ms": time_ms(torch, plain, 3, flush),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "int32_muls": nmul})
+    edges = check_edges(torch, np, params, dev, levels=levels, verbose=False)
+    n_edges = sum(len(v) for v in edges.values())
+    print(f"bootstrap kernels at logN={params.logN}: {n_cases} shapes over "
+          f"logq {levels[0]}..{levels[-1]} ({len(levels)} levels, every "
+          f"strategy and Shoup form) and keygen, {n_edges} edge inputs: "
+          f"bit for bit", flush=True)
+    return {"logN": params.logN, "levels": levels, "cases": n_cases,
+            "edge_cases": n_edges, "timed": rows}
+
+
+def drive_bootstrap_path(torch, np, dev, common, flush) -> dict:
+    """Phase 9: bootstrapping (``repro_torch.boot``) served on the card (see
+    the module docstring)."""
+    from repro_torch.boot import BOOT_STAGES, boot_params, bootstrap_circuit
+    from repro_torch.client import HESession
+    from repro_torch.core import heaan as H
+    from repro_torch.core.keys import keygen
+    from repro_torch.core.rns import PipelineConfig
+    from repro_torch.core.rotate import conj_keygen, rot_keygen
+    from repro_torch.hserve import HEServer
+    from repro_torch.hserve.circuit import execute_circuit_reference
+    from repro_torch.obs import Tracer
+
+    phase_t0 = time.perf_counter()
+    plain = PipelineConfig(use_kernels=False)
+    rng = np.random.default_rng(31)
+
+    def exhausted(params, pk, bound, seed):
+        """(message, its ciphertext walked down to logq = logp)."""
+        n = params.n_slots_max
+        z = rng.uniform(-1, 1, n) + 1j * rng.uniform(-1, 1, n)
+        z *= bound / np.max(np.abs(z))
+        ct = H.encrypt_message(z, pk, params, seed=seed)
+        return z, H.he_mod_down(ct, params, params.logp)
+
+    def galois(params, sk, plan):
+        """The plan's Galois keys, as HESession.ensure_keys mints them
+        (seeded per amount, so the same keys)."""
+        return ({req[1]: rot_keygen(params, sk, req[1], device=dev)
+                 for req in plan.requires if req[0] == "rot"},
+                conj_keygen(params, sk, device=dev))
+
+    def reference(params, evk, keys, plan, ct):
+        return execute_circuit_reference(
+            plan.resolved_ops(), {"x": ct}, params, evk=evk,
+            rot_keys=keys[0], conj_key=keys[1], cfg=plain)
+
+    def decrypt_err(params, sk, ct, z):
+        return float(np.abs(H.decrypt_message(ct, sk, params) - z).max())
+
+    # ---- 9a: boot_params() through the session, two bootstraps + auto ----
+    p4 = boot_params()
+    sk, pk, evk = keygen(p4, seed=0, device=dev)
+    tracer = Tracer()
+    server = HEServer(p4, evk, device=dev, batch=BOOT_BATCH, schedule=True,
+                      tracer=tracer)
+    session = HESession(p4, sk, pk, evk, server=server, device=dev)
+    ref_plan = bootstrap_circuit(p4, logq_in=p4.logp, device=dev)
+    session.ensure_keys(ref_plan.requires)       # minted before the count
+    msgs = [exhausted(p4, pk, ref_plan.msg_bound, 40 + i) for i in range(3)]
+    common.reset_launches()
+    t0 = time.perf_counter()
+    futs = [session.bootstrap(ct) for _, ct in msgs[:2]]
+    x = session.input(msgs[2][1])
+    futs += session.run([x * x], bootstrap="auto")
+    outs = [f.result() for f in futs]
+    torch.cuda.synchronize()
+    drain_a = time.perf_counter() - t0
+    launches_a = dict(common.LAUNCHES)
+    require(all(launches_a[k] > 0 for k in SERVE_KERNELS),
+            f"a kernel never launched on the bootstrap path: {launches_a}")
+    require(len(session._boot_plans) == 1, "the session built its plan "
+            f"{len(session._boot_plans)} times")
+    plan = next(iter(session._boot_plans.values()))
+    st = server.stats()
+    keys4 = galois(p4, sk, plan)
+    bound4 = plan.error_bound()
+    errs_a = []
+    for (z, ct), out in zip(msgs[:2], outs[:2]):
+        require(same_ct(out, reference(p4, evk, keys4, plan, ct)),
+                "9a: a served bootstrap differs from the plain path")
+        errs_a.append(decrypt_err(p4, sk, out, z))
+    r3 = reference(p4, evk, keys4, plan, msgs[2][1])
+    require(same_ct(outs[2], H.rescale(H.he_mul(r3, r3, evk, p4, plain),
+                                       p4)),
+            "9a: run([x*x], bootstrap='auto') differs from the plain path")
+    z3 = msgs[2][0]
+    err_auto = decrypt_err(p4, sk, outs[2], z3 * z3)
+    tol_auto = 4.0 * plan.msg_bound * bound4
+    require(max(errs_a) <= bound4, f"9a: bootstrap decrypts "
+            f"{max(errs_a):.3e} off, above its bound {bound4:.3e}")
+    require(err_auto <= tol_auto, f"9a: x*x past native depth decrypts "
+            f"{err_auto:.3e} off (limit {tol_auto:.3e})")
+    cb_a = st["cobatch"]
+    require(cb_a["cross_circuit_batches"] > 0,
+            f"9a: the bootstraps never co-batched: {cb_a}")
+    spans = {e["name"] for e in tracer.events if e.get("cat") == "boot"}
+    require(spans == {f"boot.{s}" for s in BOOT_STAGES},
+            f"9a: boot.* spans {sorted(spans)}")
+    # the refreshed ciphertext is an ordinary one: mul → rescale → mul
+    def served(submit, *args):
+        rid = submit(*args)
+        return server.drain()[rid]
+    r = outs[0]
+    ref = H.he_mul(r, r, evk, p4)
+    got = served(server.submit_mul, r, r)
+    require(same_ct(got, ref), "9a: mul of the refreshed ciphertext")
+    ref = H.rescale(ref, p4)
+    got = served(server.submit_rescale, got)
+    require(same_ct(got, ref), "9a: rescale of its square")
+    ref = H.he_mul(ref, ref, evk, p4)
+    got = served(server.submit_mul, got, got)
+    require(same_ct(got, ref), "9a: mul of the rescaled square")
+    # one more pair on the warm server, traced by torch.profiler
+    more = [exhausted(p4, pk, plan.msg_bound, 50 + i) for i in range(2)]
+
+    def pair4():
+        cids = [server.submit_bootstrap(ct, plan=plan) for _, ct in more]
+        res = server.drain()
+        return [res[c] for c in cids]
+    prof4 = profile(torch, pair4)
+    prof4.pop("top")
+    print(f"bootstrap 9a (logN 4): 2 bootstraps + x*x past native depth "
+          f"drained in {drain_a:.2f} s, == plain path bit for bit; errors "
+          f"{max(errs_a):.3e} (bound {bound4:.3e}), x*x {err_auto:.3e} "
+          f"(limit {tol_auto:.3e}); {cb_a}; launches {launches_a}; a warm "
+          f"pair {prof4['wall_ms']:.0f} ms wall, device busy "
+          f"{prof4['busy_share']:.1%}", flush=True)
+
+    # ---- 9b: boot_params(logN=10), 3251 nodes, 46 rotation keys ----------
+    p10 = boot_params(logN=10)
+    sk, pk, evk = keygen(p10, seed=0, device=dev)
+    server = HEServer(p10, evk, device=dev, batch=SERVE_BATCH, schedule=True)
+    session = HESession(p10, sk, pk, evk, server=server, device=dev)
+    t0 = time.perf_counter()
+    plan = bootstrap_circuit(p10, logq_in=p10.logp,
+                             plain_lookup=server.cache.has_plain, device=dev)
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    session.ensure_keys(plan.requires)
+    torch.cuda.synchronize()
+    keys_s = time.perf_counter() - t0
+    n_rot = len(server.cache.rotation_amounts)
+    # the pair repeats the lone bootstrap's input beside a second one, so
+    # two plain-path references (≈ 70 s each) cover all three results
+    msgs = [exhausted(p10, pk, plan.msg_bound, 60 + i) for i in range(2)]
+    scan = [0.0]
+    submit_ready = server._submit_ready
+
+    def timed_scan(circ):
+        t = time.perf_counter()
+        submit_ready(circ)
+        scan[0] += time.perf_counter() - t
+    server._submit_ready = timed_scan
+
+    def drain10(items):
+        scan[0] = 0.0
+        server.reset_metrics()
+        common.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cids = [server.submit_bootstrap(ct, plan=plan) for _, ct in items]
+        submit_s = time.perf_counter() - t0
+        res = server.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = server.stats()
+        run = {"bootstraps": len(items), "drain_s": wall,
+               "submit_s": submit_s, "scan_s": scan[0],
+               "scan_share": scan[0] / wall,
+               "batches": sum(d["batches"] for d in st["per_op"].values()),
+               "per_op": {op: {"requests": d["requests"],
+                               "batches": d["batches"],
+                               "ms_per_batch":
+                                   1e3 * d["wall_s"] / d["batches"]}
+                          for op, d in st["per_op"].items()},
+               "cobatch": st["cobatch"],
+               "plain_entries": st["cache"]["plain_entries"],
+               "plain_mib": st["cache"]["plain_mib"],
+               "launches": dict(common.LAUNCHES)}
+        require(all(run["launches"][k] > 0 for k in SERVE_KERNELS),
+                f"9b: a kernel never launched: {run['launches']}")
+        return [res[c] for c in cids], run
+
+    alone, run1 = drain10(msgs[:1])
+    # warm now: the pair's dispatches run under the sync check
+    dispatch = server.engine.dispatch
+    sync_checked = [0]
+
+    def strict(batch):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            sync_checked[0] += 1
+    server.engine.dispatch = strict
+    pair, run2 = drain10(msgs)
+    server.engine.dispatch = dispatch
+    server._submit_ready = submit_ready
+    require(sync_checked[0] == run2["batches"],
+            "9b: not every dispatch ran under the sync check")
+    require(run2["cobatch"]["cross_circuit_batches"] > 0,
+            f"9b: the pair never co-batched: {run2['cobatch']}")
+    keys10 = galois(p10, sk, plan)
+    bound10 = plan.error_bound()
+    t0 = time.perf_counter()
+    errs_b = []
+    for (z, ct), outs10 in zip(msgs, (alone + pair[:1], pair[1:])):
+        ref = reference(p10, evk, keys10, plan, ct)
+        for out in outs10:
+            require(same_ct(out, ref),
+                    "9b: a served bootstrap differs from the plain path")
+            errs_b.append(decrypt_err(p10, sk, out, z))
+    ref_s = time.perf_counter() - t0
+    require(max(errs_b) < BOOT_USABLE, f"9b: bootstrap decrypts "
+            f"{max(errs_b):.3e} off, above the usable-precision line "
+            f"{BOOT_USABLE:.3e}")
+    for name, run in (("alone", run1), ("pair", run2)):
+        print(f"bootstrap 9b (logN 10) {name}: drain {run['drain_s']:.2f} s "
+              f"(submit {run['submit_s']:.2f} s, _submit_ready scan "
+              f"{run['scan_s']:.2f} s = {run['scan_share']:.1%}), "
+              f"{run['batches']} batches, cross-circuit "
+              f"{run['cobatch']['cross_circuit_rate']}, plaintext cache "
+              f"{run['plain_entries']} entries {run['plain_mib']} MiB, "
+              f"launches {run['launches']}", flush=True)
+    holds = "holds" if max(errs_b) <= bound10 else "does not hold"
+    print(f"bootstrap 9b: plan {len(plan.ops)} nodes built in "
+          f"{plan_s:.1f} s, {n_rot} rotation keys + conj in {keys_s:.2f} s; "
+          f"3 results == 2 plain-path references bit for bit "
+          f"({ref_s:.1f} s), errors "
+          f"{max(errs_b):.3e} (< {BOOT_USABLE:.3e}; the reference's bound "
+          f"{bound10:.3e} {holds}); {sync_checked[0]} dispatches "
+          f"sync-checked", flush=True)
+
+    # ---- 9c: the kernels at the new shapes ---------------------------------
+    kernels = [check_boot_kernels(torch, np, params, dev, boot_levels(pl),
+                                  flush)
+               for params, pl in ((p4, ref_plan), (p10, plan))]
+    launches = summed(launches_a, run1["launches"], run2["launches"])
+    return {
+        "phase_s": time.perf_counter() - phase_t0, "launches": launches,
+        "reference": {"params": "boot_params(): logN=4 logQ=336 logp=24 h=2",
+                      "nodes": len(ref_plan.ops), "drain_s": drain_a,
+                      "launches": launches_a, "cobatch": cb_a,
+                      "max_abs_err": errs_a, "error_bound": bound4,
+                      "auto_err": err_auto, "auto_limit": tol_auto,
+                      "out_logq": ref_plan.out_logq,
+                      "warm_pair_profile": prof4},
+        "dense": {"params": "boot_params(logN=10): logN=10 logQ=336 logp=24 "
+                            "h=2", "nodes": len(plan.ops),
+                  "rotation_keys": n_rot, "plan_s": plan_s,
+                  "keygen_s": keys_s, "runs": [run1, run2],
+                  "reference_s": ref_s, "max_abs_err": errs_b,
+                  "error_bound": bound10, "usable_line": BOOT_USABLE,
+                  "within_error_bound": max(errs_b) <= bound10,
+                  "dispatches_sync_checked": sync_checked[0]},
+        "kernels": kernels}
+
+
 def profile(torch, fn) -> dict:
     """Device time by kernel name over one call of fn, the busy share, and
     the device time of the port's kernels (in all and by kernel) against
@@ -1581,6 +1916,7 @@ def main() -> int:
                                      *circuit["keys"],
                                      serving.pop("stream"))
     print_multihost(multihost, serving)
+    boot = drive_bootstrap_path(torch, np, dev, common, flush)
     per_he_mul = {key: sum(n * r[key] for k, counts in
                            HE_MUL_SHAPE_LAUNCHES.items()
                            for n, r in zip(counts, per_kernel[k]))
@@ -1601,17 +1937,20 @@ def main() -> int:
             # and the circuits; the batched per-op steps), phase 7 (the
             # served stream's first drain), phase 8 (the timed drains of
             # the subprocess workers, counted inside them, and of the
-            # in-process workers)
+            # in-process workers), phase 9 (the served bootstraps at
+            # logN 4 and 10)
             "launches": path["launches"][name] + batched["launches"][name]
             + circuit["launches"][name] + circuit["steps_launches"][name]
             + serving["launches"][name]
-            + multihost["launches"].get(name, 0),
+            + multihost["launches"].get(name, 0)
+            + boot["launches"].get(name, 0),
             "main_path_launches": path["launches"][name],
             "batched_step_launches": batched["launches"][name],
             "circuit_path_launches": circuit["launches"][name],
             "per_op_steps_launches": circuit["steps_launches"][name],
             "serving_path_launches": serving["launches"][name],
             "multihost_path_launches": multihost["launches"].get(name, 0),
+            "bootstrap_path_launches": boot["launches"].get(name, 0),
             "he_mul_launches": path["he_mul_launches"].get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                + edges.get(name, [])),
@@ -1666,6 +2005,7 @@ def main() -> int:
     print(json.dumps({"multihost": {
         "params": "paper_params(): logN=16 logQ=1200 beta=2^32",
         **multihost, "card": card}}))
+    print(json.dumps({"bootstrap": {**boot, "card": card}}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,9 @@
               level)) that the circuit-aware scheduler consults.
   - analyzer: ties them together into an AnalysisReport;
               `HESession.run(check=...)` runs it before submitting.
+  - examples: the reference's four named example circuits (degree4,
+              affine_sigmoid, rotation_average, bootstrap); `python -m
+              repro_torch.analysis` is the CLI over them.
 """
 
 from repro_torch.analysis import dataflow  # noqa: F401

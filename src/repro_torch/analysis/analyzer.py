@@ -122,9 +122,9 @@ def analyze_circuit(ops: Sequence[OpNode],
             diags.append(Diagnostic(
                 "HS007", "info",
                 f"the level-exhausted ciphertext (node {at}'s output) "
-                f"is bootstrappable: a bootstrap there would refresh "
-                f"its level (bootstrapping waits for its port, ROADMAP "
-                f"A9)", node=at))
+                f"is bootstrappable: insert the repro_torch.boot pipeline "
+                f"there — run(bootstrap=\"auto\") does this "
+                f"automatically (docs/BOOTSTRAP.md)", node=at))
         return AnalysisReport(diagnostics=diags, n_ops=len(ops))
     noise = estimate_noise(ops, input_meta, params,
                            input_bounds=input_bounds,

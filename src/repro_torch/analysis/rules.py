@@ -32,8 +32,9 @@ The catalog (the JAX package's, rule for rule):
          throughput lever).
   HS007  bootstrappable-exhaustion info   companion to an exhaustion
          HS001: names the node whose level-exhausted output a
-         bootstrap would refresh (bootstrapping waits for its port,
-         ROADMAP A9).
+         `repro_torch.boot` bootstrap would refresh
+         (run(bootstrap="auto") inserts it there automatically; the
+         reference's message, naming the port's package).
 
 The HS1xx series is the reference's shardlint (its `analysis/xla.py`,
 which checks XLA's compiled HLO and has no counterpart in the port):

@@ -27,8 +27,8 @@ Quickstart::
     y = ((x * x) * w + x).rotate(1).conj().slot_sum()
     vals = session.decrypt(y)                 # compile → serve → decrypt
 
-This is the JAX package's ``client`` package; bootstrapping (its
-``bootstrap=`` and ``HESession.bootstrap``) waits for ROADMAP A9.
+This is the JAX package's ``client`` package, bootstrapping included
+(``run(..., bootstrap="auto")`` and ``HESession.bootstrap``).
 """
 
 from repro_torch.client.compile import (  # noqa: F401

@@ -40,8 +40,7 @@ This is the JAX package's ``client/compile.py``: the same traces lower to
 the same ``CircuitOp`` lists, level-management nodes and hash-only
 plaintext operands included. A materialized plaintext is encoded as the
 port's int32 words on ``device`` (default: the device of the trace's
-inputs). Bootstrap insertion waits for bootstrapping's port (ROADMAP A9):
-``bootstrap="auto"`` raises NotImplementedError.
+inputs), and so are the diagonals of an auto-inserted bootstrap.
 """
 
 from __future__ import annotations
@@ -95,6 +94,9 @@ class CompiledCircuit:
     plain_registers: Set[Tuple[str, int]] = \
         dataclasses.field(default_factory=set)
     pt_bounds: Dict[int, float] = dataclasses.field(default_factory=dict)
+    # node index of each auto-inserted bootstrap's mod_raise head
+    # (compile_handle(bootstrap="auto")); empty when none fired
+    bootstraps: List[int] = dataclasses.field(default_factory=list)
 
 
 def _ref_key(ref: NodeRef):
@@ -107,10 +109,12 @@ def _ref_key(ref: NodeRef):
 class _Lowering:
     def __init__(self, params: HEParams,
                  plain_lookup: Optional[Callable[[str, int], bool]],
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 bootstrap: bool = False):
         self.params = params
         self.lookup = plain_lookup
         self.device = device
+        self.bootstrap = bootstrap
         self.ops: List[CircuitOp] = []
         self.meta: List[Tuple[int, int]] = []      # per-op (logq, logp)
         self.inputs: Dict[str, Ciphertext] = {}
@@ -120,6 +124,8 @@ class _Lowering:
         self.requires: Set[Requirement] = set()
         self.plain_registers: Set[Tuple[str, int]] = set()
         self.pt_bounds: Dict[int, float] = {}
+        self.bootstraps: List[int] = []
+        self._boot_memo: Dict[NodeRef, NodeRef] = {}
 
     def m(self, ref: NodeRef) -> Tuple[int, int]:
         return self.in_meta[ref] if isinstance(ref, str) else self.meta[ref]
@@ -175,7 +181,52 @@ class _Lowering:
             b = self.rescale(b, pb - pa)
         return self.align_levels(a, b)
 
+    # ---- bootstrap insertion --------------------------------------------
+
+    def maybe_bootstrap(self, ref: NodeRef, n_slots: int) -> NodeRef:
+        """Auto-insertion (compile_handle(bootstrap="auto")): when a mul
+        operand has no level left for the post-mul rescale — exactly
+        where the dataflow pass would raise "needs bootstrapping" — the
+        full `repro_torch.boot` pipeline is spliced in front of it, and
+        the mul proceeds at the refreshed level. Per-ref memo: an
+        exhausted value feeding several muls (x*x, or a shared
+        subexpression) bootstraps ONCE."""
+        if not self.bootstrap:
+            return ref
+        if self.m(ref)[0] - self.params.logp >= self.params.logp:
+            return ref
+        if ref in self._boot_memo:
+            return self._boot_memo[ref]
+        from repro_torch.boot.pipeline import bootstrap_circuit
+        lq, lp = self.m(ref)
+        plan = bootstrap_circuit(
+            self.params, logq_in=lq, logp=lp, n_slots=n_slots,
+            plain_lookup=lambda hs, q: (hs, q) in self.plain_registers
+            or (self.lookup is not None and self.lookup(hs, q)),
+            device=self.encode_device())
+        off = len(self.ops)
+        for node, m in zip(plan.ops, plan.meta):
+            args = tuple(ref if isinstance(a, str) else a + off
+                         for a in node.args)
+            self.ops.append(dataclasses.replace(node, args=args))
+            self.meta.append(m)
+        for i, bnd in plan.pt_bounds.items():
+            self.pt_bounds[i + off] = bnd
+        self.requires |= plan.requires
+        self.plain_registers |= plan.plain_registers
+        self.bootstraps.append(off)
+        out = len(self.ops) - 1
+        self._boot_memo[ref] = out
+        return out
+
     # ---- plaintext operands ---------------------------------------------
+
+    def encode_device(self) -> torch.device:
+        """Where materialized plaintexts are encoded: the caller's
+        ``device``, else the device of the trace's inputs."""
+        if self.device is None:
+            self.device = next(iter(self.inputs.values())).ax.device
+        return self.device
 
     def plain_operand(self, h: CipherHandle, log_delta: int, logq: int):
         """(pt, hash, bound) for a plain operand at a use site: hash
@@ -192,10 +243,8 @@ class _Lowering:
                 self.lookup is not None and self.lookup(hsh, logq)):
             return None, hsh, bound
         self.plain_registers.add((hsh, logq))
-        if self.device is None:            # the device of the trace's inputs
-            self.device = next(iter(self.inputs.values())).ax.device
         return H.encode_plain(z, self.params, logq, log_delta=log_delta,
-                              device=self.device), hsh, bound
+                              device=self.encode_device()), hsh, bound
 
     # ---- the lowering walk ----------------------------------------------
 
@@ -211,13 +260,16 @@ class _Lowering:
             return name
         refs = [self.visit(a) for a in h.args]
         if h.op == "mul":
-            a, b = self.align_levels(*refs)
+            a = self.maybe_bootstrap(refs[0], h.n_slots)
+            b = self.maybe_bootstrap(refs[1], h.n_slots)
+            a, b = self.align_levels(a, b)
             a, b = sorted((a, b), key=_ref_key)
             i = self.emit("mul", (a, b), out=self.out("mul", (a, b)))
             i = self.rescale(i, p.logp)
             self.requires.add(("evk",))
         elif h.op == "mul_plain":
             a, = refs
+            a = self.maybe_bootstrap(a, h.n_slots)
             lq = self.m(a)[0]
             pt, hsh, bound = self.plain_operand(h, p.log_delta, lq)
             i = self.emit("mul_plain", (a,), pt=pt, pt_logp=p.log_delta,
@@ -271,21 +323,20 @@ def compile_handle(root: CipherHandle, params: HEParams, *,
     cache already holds an operand (``TableCache.has_plain``); matching
     operands ship hash-only, skipping the client-side encode.
 
-    bootstrap: "off"/False (the default) — a trace deeper than the
-    modulus budget raises "needs bootstrapping" at compile. "auto"/True,
-    the reference's bootstrap insertion, raises NotImplementedError:
-    bootstrapping is not ported yet (ROADMAP A9).
+    bootstrap: "auto" (or True) splices the `repro_torch.boot` pipeline in
+    front of any mul operand too exhausted for its post-mul rescale —
+    the trace may then exceed the native depth budget; the indices of
+    inserted pipelines land in ``CompiledCircuit.bootstraps``. The
+    default "off"/False: a too-deep trace raises "needs bootstrapping"
+    at compile.
 
-    device: where materialized plaintext operands are encoded (default:
-    the device of the trace's inputs); ``HESession`` passes its server's.
+    device: where materialized plaintext operands (and an inserted
+    bootstrap's diagonals) are encoded (default: the device of the
+    trace's inputs); ``HESession`` passes its server's.
     """
     if bootstrap not in (False, True, "auto", "off"):
         raise ValueError(f"bootstrap must be 'auto' or 'off', "
                          f"got {bootstrap!r}")
-    if bootstrap in (True, "auto"):
-        raise NotImplementedError(
-            "bootstrap insertion needs bootstrapping, which is not ported "
-            "yet (ROADMAP A9)")
     if root.op == "input":
         # a bare input needs no server round trip at all
         return CompiledCircuit(ops=[], inputs={"in0": root.ct},
@@ -293,7 +344,8 @@ def compile_handle(root: CipherHandle, params: HEParams, *,
                                out_logp=root.ct.logp,
                                n_slots=root.n_slots, requires=set())
     lw = _Lowering(params, plain_lookup,
-                   None if device is None else torch.device(device))
+                   None if device is None else torch.device(device),
+                   bootstrap=bootstrap in (True, "auto"))
     out = lw.visit(root)
     if isinstance(out, str) or out != len(lw.ops) - 1:
         # defensive: the server returns the LAST node's ciphertext, so a
@@ -308,4 +360,5 @@ def compile_handle(root: CipherHandle, params: HEParams, *,
                            out_logq=out_logq, out_logp=out_logp,
                            n_slots=root.n_slots, requires=lw.requires,
                            plain_registers=lw.plain_registers,
-                           pt_bounds=lw.pt_bounds)
+                           pt_bounds=lw.pt_bounds,
+                           bootstraps=lw.bootstraps)

@@ -28,9 +28,8 @@ session has a ``device`` (default "cuda") where its keys live and where
 it encrypts and decrypts; its server may serve another device (an
 ``HEFrontend`` serves from the host), and the session moves a
 ciphertext to the server's device explicitly when it submits one
-(:meth:`to_server`) and back to its own when it decrypts. Bootstrapping
-is not ported yet (ROADMAP A9): :meth:`bootstrap` and
-``run(bootstrap="auto")`` raise NotImplementedError.
+(:meth:`to_server`) and back to its own when it decrypts. A bootstrap
+plan encodes its diagonals on the server's device.
 """
 
 from __future__ import annotations
@@ -138,8 +137,14 @@ class HESession:
             if reg is not None else None
         self._c_circuits = reg.counter("client.circuits") \
             if reg is not None else None
+        self._c_bootstraps = reg.counter("client.bootstraps") \
+            if reg is not None else None
         self.auto_keys = auto_keys
         self._futures: Dict[int, CipherFuture] = {}
+        # bootstrap plans keyed by (logq, logp, n_slots, config):
+        # construction (stage lowering + DFT matrices) happens once per
+        # input shape; repeats also ship their diagonals hash-only
+        self._boot_plans: Dict[tuple, object] = {}
         # raw server-submit results completed by a future-triggered
         # drain, buffered until the next explicit drain() claims them
         self._raw: Dict[int, Ciphertext] = {}
@@ -210,11 +215,41 @@ class HESession:
                               bootstrap=bootstrap,
                               device=self.server.device)
 
-    def bootstrap(self, x, *, config=None) -> CipherFuture:
-        """The reference's served bootstrap: not ported yet."""
-        raise NotImplementedError(
-            "HESession.bootstrap needs bootstrapping, which is not ported "
-            "yet (ROADMAP A9)")
+    def bootstrap(self, x: Union[Ciphertext, CipherHandle, CipherFuture],
+                  *, config=None) -> CipherFuture:
+        """Refresh a level-exhausted ciphertext through the served
+        `repro_torch.boot` pipeline; returns a future whose result is the
+        SAME message at a higher level (within the plan's error bound —
+        bootstrap is approximate, `BootstrapPlan.error_bound`).
+
+        x: a ciphertext, input handle, traced handle (run first), or
+        future (drained first). Plans are cached per input shape, so
+        repeat bootstraps skip plan construction AND ship their
+        CoeffToSlot/SlotToCoeff diagonals hash-only. Needed rotation /
+        conjugation keys auto-provision like :meth:`run`'s.
+        """
+        from repro_torch.boot.pipeline import BootConfig, bootstrap_circuit
+        if isinstance(x, CipherHandle):
+            x = x.ct if x.op == "input" else self.run([x])[0]
+        if isinstance(x, CipherFuture):
+            x = x.result()
+        key = (x.logq, x.logp, x.n_slots, config or BootConfig())
+        plan = self._boot_plans.get(key)
+        if plan is None:
+            plan = bootstrap_circuit(
+                self.params, logq_in=x.logq, logp=x.logp,
+                n_slots=x.n_slots, config=config,
+                plain_lookup=self.server.cache.has_plain,
+                device=self.server.device)
+            self._boot_plans[key] = plan
+        if self.auto_keys and self.sk is not None:
+            self.ensure_keys(plan.requires)
+        cid = self.server.submit_bootstrap(self.to_server(x), plan=plan)
+        fut = CipherFuture(self, cid)
+        self._futures[cid] = fut
+        if self._c_bootstraps is not None:
+            self._c_bootstraps.inc()
+        return fut
 
     def run(self, handles: Sequence[CipherHandle], *,
             check: str = "off",
@@ -245,8 +280,11 @@ class HESession:
         are kept on ``self.last_reports`` (one per handle, None for
         bare inputs) either way.
 
-        bootstrap: "off"/False only; "auto" raises NotImplementedError
-        (bootstrapping is not ported yet, ROADMAP A9).
+        bootstrap: "auto" (or True) lets the compile pass splice the
+        served `repro_torch.boot` pipeline in front of level-exhausted
+        mul operands, so a trace deeper than the native modulus budget
+        still runs (approximately, within the plan's error bound).
+        Default off: such traces raise "needs bootstrapping" at compile.
         """
         if check not in ("off", "warn", "error"):
             raise ValueError(f"check must be 'off', 'warn', or "

@@ -58,9 +58,9 @@ it only reorders drain flushes and warms caches.
 This is the JAX package's ``hserve/server.py`` on one device: ``device=``
 (default "cuda", through ``core.context.resolve_device``) in place of
 ``mesh=``, and ``stats()["device"]`` in place of ``stats()["mesh"]``. The
-queue refuses operands that lie elsewhere, at submit. Left out:
-``submit_bootstrap`` and its ``boot.*`` trace lane (bootstrapping is not
-ported yet).
+queue refuses operands that lie elsewhere, at submit. ``submit_bootstrap``
+serves a `repro_torch.boot` plan like any circuit, and a tracer gets its
+``boot.*`` lane.
 """
 
 from __future__ import annotations
@@ -234,6 +234,9 @@ class HEServer:
         self._inflight: Optional[Inflight] = None
         self._circuits: Dict[int, _CircuitState] = {}
         self._node_of_rid: Dict[int, Tuple[int, int]] = {}
+        # cid -> per-node pipeline-stage labels for in-flight bootstrap
+        # circuits (submit_bootstrap): drives the boot.* trace lane
+        self._boot_stages: Dict[int, List[str]] = {}
         self._tracer = tracer
         self.cache.tracer = tracer
         # telemetry plane: every subsystem publishes into ONE registry.
@@ -360,7 +363,7 @@ class HEServer:
 
     def submit_mod_raise(self, ct: Ciphertext, logq2: int) -> int:
         """Raise ct to a wider modulus logq2 > ct.logq (the exact
-        centered lift — bootstrap stage 1)."""
+        centered lift — bootstrap stage 1; see `repro_torch.boot`)."""
         return self.submit("mod_raise", (ct,), logq2=logq2)
 
     def submit_mul_plain(self, ct: Ciphertext, pt=None,
@@ -462,6 +465,33 @@ class HEServer:
         self._submit_ready(circ)
         return cid
 
+    def submit_bootstrap(self, ct: Ciphertext, *, config=None,
+                         plan=None) -> int:
+        """Submit a full bootstrap pipeline (see `repro_torch.boot`) for
+        one level-exhausted ciphertext; returns a cid whose result — the
+        REFRESHED ciphertext at plan.out_logq — arrives like any other
+        circuit's. Every stage rides submit_circuit, so concurrent
+        bootstraps co-batch their aligned rotation/mul nodes, and the
+        CtS/StC diagonals land in the plaintext cache (hash-only on
+        every repeat shape). Pass a prebuilt `BootstrapPlan` to skip
+        plan construction (sessions cache plans per input shape); one
+        built here encodes its diagonals on the server's device."""
+        from repro_torch.boot.pipeline import bootstrap_circuit
+        if plan is None:
+            plan = bootstrap_circuit(
+                self.params, logq_in=ct.logq, logp=ct.logp,
+                n_slots=ct.n_slots, config=config,
+                plain_lookup=self.cache.has_plain, device=self.device)
+        if (ct.logq, ct.logp, ct.n_slots) != (plan.logq_in, plan.logp,
+                                              plan.n_slots):
+            raise ValueError(
+                f"plan was built for (logq={plan.logq_in}, "
+                f"logp={plan.logp}, n={plan.n_slots}), got ciphertext "
+                f"at (logq={ct.logq}, logp={ct.logp}, n={ct.n_slots})")
+        cid = self.submit_circuit(plan.ops, {plan.in_name: ct})
+        self._boot_stages[cid] = list(plan.stages)
+        return cid
+
     def _submit_ready(self, circ: _CircuitState) -> None:
         """Enqueue every not-yet-submitted node whose operands are all
         resolved (inputs or completed earlier nodes)."""
@@ -492,6 +522,7 @@ class HEServer:
         circ.values[node_idx] = ct
         if node_idx == len(circ.ops) - 1:
             del self._circuits[cid]
+            self._boot_stages.pop(cid, None)
             self.scheduler.on_finished(cid)
             return [(cid, ct)]
         self._submit_ready(circ)
@@ -656,6 +687,22 @@ class HEServer:
         if n_nodes:
             self.metrics.record_circuit_batch(
                 len({t[0] for t in tags if t is not None}), n_nodes)
+        if self._tracer is not None and self._boot_stages:
+            # boot.* lane: attribute this batch's wall to the bootstrap
+            # pipeline stages it served, proportionally by node count —
+            # one span per (circuit, stage) present in the batch
+            by_stage: Dict[Tuple[int, str], int] = {}
+            for t in tags:
+                if t is not None and t[0] in self._boot_stages:
+                    stage = self._boot_stages[t[0]][t[1]]
+                    by_stage[(t[0], stage)] = \
+                        by_stage.get((t[0], stage), 0) + 1
+            for (cid, stage), count in sorted(by_stage.items()):
+                self._tracer.event(
+                    f"boot.{stage}", cat="boot", lane="boot",
+                    ts=done - wall, dur=wall * count / b.n_valid,
+                    args={"cid": cid, "nodes": count, "op": b.op,
+                          "logq": b.logq})
         client: List[Tuple[int, Ciphertext]] = []
         for req, ct in zip(b.requests, outs):
             tag = self._node_of_rid.pop(req.rid, None)

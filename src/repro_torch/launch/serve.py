@@ -9,11 +9,13 @@ driven by a :class:`repro_torch.client.HESession`.
         [--plain-frac 0.25] [--circuit] [--schedule] [--max-age-s 0.05] \\
         [--overlap] [--no-kernels] [--trace T.json] [--profile-stages] \\
         [--metrics M.json] [--traced 2] [--check off|warn|error] \\
-        [--workers 2 --transport inproc|subprocess] [--device cuda]
+        [--workers 2 --transport inproc|subprocess] [--bootstrap [N]] \
+        [--device cuda]
 
 This is the JAX package's ``launch/serve.py`` ``serve_he``, at its SMOKE
-parameters. Not ported yet: ``--model-shards`` (the batched step across
-ranks), ``--bootstrap`` (ROADMAP A9), and the LM serving path.
+parameters (``boot_params()`` with ``--bootstrap``). Not ported yet:
+``--model-shards`` (the batched step across ranks) and the LM serving
+path.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import json
 import numpy as np
 import torch
 
+from repro_torch.boot import boot_params
 from repro_torch.client import HESession
 from repro_torch.core import heaan as H
 from repro_torch.core.context import resolve_device
@@ -46,7 +49,7 @@ def serve_he(batch: int, requests: int = 0, levels: int = 1,
              traced: int = 0, check: str = "off", seed: int = 0,
              trace: str | None = None, profile_stages: bool = False,
              metrics: str | None = None, workers: int = 0,
-             transport: str = "inproc",
+             transport: str = "inproc", bootstrap: int = 0,
              device: str | torch.device = "cuda") -> dict:
     """Batched multi-level HE serving on `device` (default the card; raises
     without CUDA), driven through an HESession (keygen, encrypt/decrypt;
@@ -77,9 +80,18 @@ def serve_he(batch: int, requests: int = 0, levels: int = 1,
     `profile_stages` fences each stage and adds the Fig. 3 CRT/NTT/modmul/
     iCRT split to the stats; `metrics` dumps the registry snapshot as
     JSON to that path.
+
+    `bootstrap` > 0 additionally serves that many CONCURRENT bootstrap
+    pipelines (`repro_torch.boot`) over level-exhausted ciphertexts — the
+    whole run switches to the reference bootstrap params (`boot_params()`:
+    logQ=336, h=2) so the pipeline fits the modulus chain. Bootstrap
+    results are held to the plan's error bound (approximate, not bit for
+    bit), and under `schedule` with two or more, to cross-circuit
+    co-batching; the stats gain a "bootstrap" block with the measured
+    error, the bound, and the cross-circuit co-batch rate.
     """
     dev = resolve_device(device)
-    params = SMOKE
+    params = boot_params() if bootstrap else SMOKE
     requests = requests or 2 * batch + 1   # force >1 batch and padding
     # the lowest level logq = logp is excluded: mul results there cannot
     # rescale (ciphertext exhausted), and verification rescales every mul
@@ -114,7 +126,7 @@ def serve_he(batch: int, requests: int = 0, levels: int = 1,
     try:
         return _serve(session, params, requests, levels, rotations,
                       conjugations, plain_frac, circuit, schedule, traced,
-                      check, seed, tracer, trace, metrics)
+                      check, seed, tracer, trace, metrics, bootstrap)
     finally:
         if workers > 0:
             session.server.close()
@@ -122,7 +134,7 @@ def serve_he(batch: int, requests: int = 0, levels: int = 1,
 
 def _serve(session, params, requests, levels, rotations, conjugations,
            plain_frac, circuit, schedule, traced, check, seed, tracer,
-           trace, metrics) -> dict:
+           trace, metrics, bootstrap) -> dict:
     server = session.server
     sdev = server.device
     if rotations:
@@ -211,6 +223,18 @@ def _serve(session, params, requests, levels, rotations, conjugations,
                  np.full(n, np.conj(np.roll(zt * zt * wz + zt,
                                             -1)).sum())))
 
+    bfuts = []
+    if bootstrap:
+        # N concurrent bootstrap pipelines over level-exhausted inputs:
+        # their aligned stage nodes co-batch ACROSS circuits (and with
+        # the plain request stream) through the same queue
+        for j in range(bootstrap):
+            zb = rng.uniform(-1, 1, n) + 1j * rng.uniform(-1, 1, n)
+            zb *= 2.0 ** -5 / np.max(np.abs(zb))
+            ct = session.encrypt(zb, seed=8888 + j).ciphertext
+            ct = H.he_mod_down(ct, params, params.logp)  # exhausted
+            bfuts.append((session.bootstrap(ct), zb))
+
     # session.drain (not server.drain) so traced futures resolve while
     # the raw per-op/circuit results come back as {rid: ct}
     results.update(session.drain())
@@ -225,6 +249,38 @@ def _serve(session, params, requests, levels, rotations, conjugations,
                                  - want).max()))
     stats = server.stats()
     stats["max_err"] = max(errs)
+    if bootstrap:
+        # approximate-op contract: an error-BOUND gate, not bit for bit
+        plan = next(iter(session._boot_plans.values()))
+        berrs = []
+        for fut, want in bfuts:
+            out = fut.result()
+            if out.logq != plan.out_logq:
+                raise AssertionError(
+                    f"bootstrap result at logq {out.logq}, the plan's "
+                    f"output is at {plan.out_logq}")
+            berrs.append(
+                float(np.abs(session.decrypt(out) - want).max()))
+        bound = plan.error_bound()
+        if max(berrs) > bound:
+            raise AssertionError(
+                f"bootstrap error {max(berrs):.3e} exceeds the "
+                f"bound {bound:.3e}")
+        if schedule and bootstrap >= 2 \
+                and stats["cobatch"]["cross_circuit_batches"] == 0:
+            raise AssertionError(
+                "concurrent bootstraps never co-batched across "
+                "circuits — the scheduler lost the batched-"
+                "bootstrapping payoff")
+        stats["bootstrap"] = {
+            "n": bootstrap,
+            "max_err": max(berrs),
+            "error_bound": bound,
+            "logq_in": plan.logq_in,
+            "out_logq": plan.out_logq,
+            "cross_circuit_rate":
+                stats["cobatch"]["cross_circuit_rate"],
+        }
     if trace:
         stats["trace_events"] = tracer.write(trace)
     if metrics:
@@ -291,6 +347,15 @@ def main(argv=None) -> None:
                     choices=["inproc", "subprocess"],
                     help="with --workers: workers in this process, or "
                          "worker processes speaking frames over pipes")
+    ap.add_argument("--bootstrap", type=int, nargs="?", const=2,
+                    default=0, metavar="N",
+                    help="also serve N concurrent CKKS bootstrap "
+                         "pipelines (repro_torch.boot) over level-exhausted "
+                         "ciphertexts; bare --bootstrap means N=2 so "
+                         "cross-circuit co-batching is exercised. "
+                         "Switches the run to the reference bootstrap "
+                         "params (logQ=336, h=2); results are held to "
+                         "the plan's error bound")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome trace-event JSON of the request "
@@ -317,7 +382,8 @@ def main(argv=None) -> None:
                      profile_stages=args.profile_stages,
                      metrics=args.metrics, traced=args.traced,
                      check=args.check, workers=args.workers,
-                     transport=args.transport, device=args.device)
+                     transport=args.transport, bootstrap=args.bootstrap,
+                     device=args.device)
     ops = ", ".join(
         f"{op}: {d['requests']} reqs @ {d['ops_per_s']}/s "
         f"(p50 {d['latency_ms']['p50']}ms, "
@@ -356,6 +422,13 @@ def main(argv=None) -> None:
                 for s, v in row.items()) if tot else "—"
             cov = f" coverage {tot / wall:.0%} of wall" if wall else ""
             print(f"  fig3[{op}]: {split}{cov}")
+    if args.bootstrap:
+        bs = stats["bootstrap"]
+        print(f"  bootstrap: {bs['n']} concurrent pipeline(s) "
+              f"logq {bs['logq_in']} -> {bs['out_logq']}, "
+              f"max_err {bs['max_err']:.2e} "
+              f"(bound {bs['error_bound']:.2e}), "
+              f"cross_circuit_rate {bs['cross_circuit_rate']}")
     if args.trace:
         print(f"  trace: {stats['trace_events']} events -> {args.trace}")
     if args.metrics:

@@ -3,7 +3,7 @@ on the CPU.
 
 The reference's example circuits (``repro.analysis.examples``: the
 degree-4 demo, the traced affine-sigmoid scoring and the rotation
-average; its bootstrap example waits for bootstrapping's port, ROADMAP A9)
+average; the bootstrap example and the CLI are tests/test_torch_analysis_cli.py's)
 are built again from the port's own objects and analyzed by both sides:
 the noise estimates, the diagnostics, ``AnalysisReport.to_dict()`` and its
 rendering, and the cost estimates of a ``CostModel`` fitted from the same
@@ -197,13 +197,15 @@ def test_rule_findings_equal_the_reference(case):
     r = ta.analyze_circuit(build(CircuitOp), {"x": TOP}, P, **kw)
     jr = ja.analyze_circuit(build(JCircuitOp), {"x": TOP}, PJ, **kw)
     if case.startswith("HS001"):
-        # the HS007 hint names the same node; its text points at the
-        # port's missing bootstrap rather than the reference's
-        assert [(d.rule, d.severity, d.node) for d in r.diagnostics] == \
-            [(d.rule, d.severity, d.node) for d in jr.diagnostics]
-        assert dataclasses.asdict(r.diagnostics[0]) == \
-            dataclasses.asdict(jr.diagnostics[0])
-        assert "A9" in r.diagnostics[1].message
+        # the HS007 hint names the same node in the reference's words,
+        # with the port's bootstrap package in place of the reference's
+        assert [d.rule for d in r.diagnostics] == ["HS001", "HS007"]
+        hint = dataclasses.asdict(r.diagnostics[1])
+        assert "repro_torch.boot pipeline" in hint["message"]
+        hint["message"] = hint["message"].replace("repro_torch.boot",
+                                                  "repro.boot")
+        assert [dataclasses.asdict(r.diagnostics[0]), hint] == \
+            [dataclasses.asdict(d) for d in jr.diagnostics]
         assert not r.ok
         return
     _same_reports(r, jr)

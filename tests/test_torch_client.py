@@ -10,9 +10,9 @@ where an operand is materialized and none where it ships hash-only. An
 ``HEServer`` and over its ``HEFrontend`` must give, word for word, what
 the JAX session gives over the JAX ``HEServer`` (a (1, 1) mesh with Auto
 axes), with the same analyzer reports; a session missing Galois keys
-provisions them through the frontend's broadcast; bootstrapping raises
-NotImplementedError. Keys are made by the port and carried into JAX with
-``repro_torch.convert``.
+provisions them through the frontend's broadcast; the bootstrap entries
+reach the ported pipeline (tests/test_torch_boot.py serves it). Keys are
+made by the port and carried into JAX with ``repro_torch.convert``.
 """
 
 import numpy as np
@@ -35,6 +35,7 @@ from repro.core.cipher import SecretKey as JSecretKey
 from repro.hserve import HEServer as JHEServer
 
 from repro_torch import convert
+from repro_torch.analysis.dataflow import CircuitError
 from repro_torch.client import CipherHandle, HESession, compile_handle
 from repro_torch.client.testing import random_expr
 from repro_torch.core import heaan as H
@@ -229,17 +230,27 @@ def test_session_moves_operands_to_its_server_explicitly(keys, leaves):
 @pytest.mark.parametrize("call", ["compile_handle", "session.compile",
                                   "session.run", "session.bootstrap"])
 def test_bootstrap_raises_not_implemented(keys, leaves, call):
+    """None of the four bootstrap entries is a stub any more
+    (NotImplementedError is gone): each reaches the ported pipeline,
+    which at these params (L = 5) refuses with its own CircuitError — the
+    chain is too short for the pipeline's levels — before anything is
+    enqueued. The served bootstrap is tests/test_torch_boot.py's."""
     sk, pk, evk, _, _ = keys
     s = HESession(PT, sk, pk, evk, device="cpu", batch=2)
-    x = s.input(leaves[0][0])
+    ct = H.he_mod_down(leaves[0][0], PT, PT.logp)       # exhausted
+    x = s.input(ct)
     y = x * x
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(CircuitError, match="needs bootstrapping") as e:
         if call == "compile_handle":
-            compile_handle(y, PT, bootstrap="auto")
+            compile_handle(y, PT, bootstrap="auto", device="cpu")
         elif call == "session.compile":
             s.compile(y, bootstrap=True)
         elif call == "session.run":
             s.run([y], bootstrap="auto")
         else:
             s.bootstrap(x)
+    assert not isinstance(e.value, NotImplementedError)
+    # the refusal comes from inside the pipeline's trace, not from the
+    # mul it was spliced in front of
+    assert e.value.node is None
     assert s.server.queue.submitted == 0

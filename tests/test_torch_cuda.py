@@ -634,3 +634,141 @@ def test_cuda_worker_init_raises_without_its_card(dev):
                    worker_device=missing)
     with pytest.raises(RuntimeError):
         WorkerEngine(p, evk, device=missing)
+
+
+# ---------------------------------------------------------- bootstrapping
+
+def _boot_env(dev):
+    """boot_params() on the card: keys, the plan, its Galois keys, two
+    exhausted ciphertexts of messages within the plan's bound."""
+    from repro_torch.boot import boot_params, bootstrap_circuit
+    from repro_torch.core.rotate import conj_keygen, rot_keygen
+    p = boot_params()
+    sk, pk, evk = keygen(p, seed=0, device=dev)
+    plan = bootstrap_circuit(p, logq_in=p.logp, device=dev)
+    rks = {req[1]: rot_keygen(p, sk, req[1], device=dev)
+           for req in plan.requires if req[0] == "rot"}
+    ck = conj_keygen(p, sk, device=dev)
+    rng = np.random.default_rng(23)
+    msgs, cts = [], []
+    for i in range(2):
+        z = rng.uniform(-1, 1, 8) + 1j * rng.uniform(-1, 1, 8)
+        z *= plan.msg_bound / np.abs(z).max()
+        msgs.append(z)
+        cts.append(H.he_mod_down(H.encrypt_message(z, pk, p, seed=80 + i),
+                                 p, p.logp))
+    return p, sk, evk, rks, ck, plan, msgs, cts
+
+
+def test_cuda_served_bootstrap_equals_plain_path(dev):
+    """Two concurrent bootstraps through HEServer on the card, through the
+    kernels, give the words of execute_circuit_reference on the plain
+    path; every kernel launches; each decrypts within the plan's bound;
+    they co-batch across circuits."""
+    from repro_torch.hserve import HEServer
+    from repro_torch.hserve.circuit import execute_circuit_reference
+    p, sk, evk, rks, ck, plan, msgs, cts = _boot_env(dev)
+    server = HEServer(p, evk, rks, ck, device=dev, batch=2, schedule=True)
+    common.reset_launches()
+    cids = [server.submit_bootstrap(ct, plan=plan) for ct in cts]
+    res = server.drain()
+    torch.cuda.synchronize()
+    assert all(common.LAUNCHES[k] > 0
+               for k in ("crt", "ntt", "intt", "icrt", "modmul"))
+    assert server.stats()["cobatch"]["cross_circuit_batches"] > 0
+    plain = PipelineConfig(use_kernels=False)
+    for z, ct, cid in zip(msgs, cts, cids):
+        want = execute_circuit_reference(plan.resolved_ops(), {"x": ct}, p,
+                                         evk=evk, rot_keys=rks, conj_key=ck,
+                                         cfg=plain)
+        got = res[cid]
+        assert (got.logq, got.logp) == (want.logq, want.logp)
+        assert torch.equal(got.ax, want.ax) and torch.equal(got.bx, want.bx)
+        err = np.abs(H.decrypt_message(got, sk, p) - z).max()
+        assert err <= plan.error_bound()
+
+
+def test_cuda_served_bootstrap_dispatch_never_syncs(dev):
+    """Once the server is warm, a bootstrap's every dispatch — mod_raise,
+    the BSGS rotations and plaintext products, EvalMod's muls and
+    conjugations, the level ops — runs without synchronizing the host
+    (set_sync_debug_mode("error") around each) and gives the cold run's
+    words."""
+    from repro_torch.hserve import HEServer
+    p, sk, evk, rks, ck, plan, msgs, cts = _boot_env(dev)
+    server = HEServer(p, evk, rks, ck, device=dev, batch=2, schedule=True)
+    cid = server.submit_bootstrap(cts[0], plan=plan)
+    cold = server.drain()[cid]
+    dispatch, checked = server.engine.dispatch, []
+
+    def strict(batch):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            checked.append(batch.op)
+
+    server.engine.dispatch = strict
+    cid = server.submit_bootstrap(cts[0], plan=plan)
+    warm = server.drain()[cid]
+    assert torch.equal(warm.ax, cold.ax) and torch.equal(warm.bx, cold.bx)
+    assert {"mod_raise", "rotate", "conjugate", "mul", "mul_plain",
+            "rescale", "add"} <= set(checked)
+
+
+@pytest.mark.parametrize("logN", [4, 10])
+def test_cuda_kernels_at_bootstrap_shapes(dev, logN):
+    """Every kernel and variant equals its plain version at each level a
+    bootstrap plan visits (logq 24..336, N = 16 and 1024), on one
+    ciphertext and on a batch of four."""
+    from repro_torch.boot import boot_params
+    p = boot_params(logN=logN)
+    N = p.N
+    common.reset_launches()
+    for logq in range(p.logp, p.logQ + 1, p.logp):
+        tc = make_context(p, logq, dev)
+        tg = tc.tables
+        primes = tg.primes.cpu().numpy().view(np.uint32)
+        for npn in (tc.np1, tc.np2):
+            fwd = (tg.psi_rev[:npn], tg.psi_rev_shoup[:npn], tg.primes[:npn])
+            inv = (tg.ipsi_rev[:npn], tg.ipsi_rev_shoup[:npn],
+                   tg.n_inv[:npn], tg.n_inv_shoup[:npn], tg.primes[:npn])
+            mm = (tg.primes[:npn], tg.pprime[:npn], tg.r2[:npn])
+            tb = tg.crt_tb[:npn, :max(tc.qlimbs, 3)].contiguous()
+            tbs = tg.crt_tb_shoup[:npn, :max(tc.qlimbs, 3)].contiguous()
+            for B in (1, 4):
+                x = _t(np.concatenate([_residues(primes, npn, N, logq + b)
+                                       for b in range(B)]), dev)
+                y = _t(np.concatenate([_residues(primes, npn, N, 7 + b)
+                                       for b in range(B)]), dev)
+                m4 = tuple(v.repeat(B) for v in mm)
+                assert torch.equal(pointwise_mont_op(x, y, *m4),
+                                   pointwise_mont_ref(x, y, *m4))
+                for mod in (False, True):
+                    ev = ntt_op(x, *fwd, modified=mod)
+                    assert torch.equal(ev, ntt_ref(x, *fwd, modified=mod))
+                    back = intt_op(ev, *inv, modified=mod)
+                    assert torch.equal(back, intt_ref(ev, *inv,
+                                                      modified=mod))
+                    assert torch.equal(back, x)
+                pr = random.Random(logq * 8 + B)
+                limbs = _t(ints_to_limb_array(
+                    [pr.getrandbits(32 * tc.qlimbs) for _ in range(B * N)],
+                    tc.qlimbs, 32), dev)
+                for strategy in ("acc3", "mod2", "mod4"):
+                    assert torch.equal(
+                        crt_op(limbs, tb, tbs, tg.primes[:npn],
+                               strategy=strategy),
+                        crt_ref(limbs, tb, tbs, tg.primes[:npn],
+                                strategy=strategy))
+                t = icrt_inputs(tc.icrt1 if npn == tc.np1 else tc.icrt2, tg)
+                r = _t(np.concatenate([_residues(primes, npn, N, 3 + b)
+                                       for b in range(B)], axis=1), dev)
+                out = tc.qlimbs if npn == tc.np1 else \
+                    p.limbs_for_bits(logq + p.logQ) + 1
+                assert torch.equal(icrt_op(r, t, out), icrt_ref(r, t, out))
+    torch.cuda.synchronize()
+    assert all(common.LAUNCHES[k] > 0 for k in (
+        "crt", "ntt", "intt", "icrt", "modmul", "crt_mod2", "crt_mod4",
+        "ntt_modified", "intt_modified"))

@@ -46,6 +46,10 @@ def test_no_module_of_the_port_imports_jax_or_repro():
                  "repro_torch.client.compile", "repro_torch.client.session",
                  "repro_torch.client.testing", "repro_torch.analysis.noise",
                  "repro_torch.analysis.rules", "repro_torch.analysis.cost",
-                 "repro_torch.analysis.analyzer"):
+                 "repro_torch.analysis.analyzer",
+                 "repro_torch.analysis.examples",
+                 "repro_torch.analysis.__main__", "repro_torch.boot",
+                 "repro_torch.boot.modraise", "repro_torch.boot.linear",
+                 "repro_torch.boot.evalmod", "repro_torch.boot.pipeline"):
         assert name in got["modules"]
     assert got["bad"] == []
