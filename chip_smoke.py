@@ -131,6 +131,24 @@ Phases; any failure exits non-zero and prints no result:
    (N = 16 and 1024, logq 24..336, B = 1 and BATCH), at keygen's shapes,
    and iCRT's and CRT's edge inputs there; the top level's kernel shapes
    timed.
+10. The paper's β = 2^64 word mode at ``paper_params(beta_bits=64)``
+   (qlimbs 19, np₁ 41, np₂ 61) on the card, through the plain path: the
+   kernels take β = 2^32 words, as the reference's do, so this phase
+   launches none. 10a: the tables built and moved, timed; sampled entries
+   of every table against python ints. 10b: keygen, the rotation-by-1 and
+   conjugation keys, two encryptions (phase 3's messages and seeds);
+   he_mul + rescale decrypts within 1e-3, the rotation and the
+   conjugation within serve_he's 1e-2 (phase 3's first ciphertext
+   rotated and conjugated under phase 6's keys gives the β = 2^32 errors
+   beside); no port kernel launched; he_mul at β = 2^64 timed (median of 5,
+   host clock, and device ms and events from one profiled call) beside
+   phase 3's he_mul at β = 2^32 on the plain path and on the kernels.
+   10c: ``make_he_mul_step`` at B = BETA64_BATCH equals per-pair he_mul
+   bit for bit; ms a step and the step's peak memory. 10d: every key and
+   ciphertext word of the same run at logN BETA64_CPU_LOGN equals the
+   CPU's bit for bit, and sampled coefficients of region 1's bx1·bx2 at
+   paper params equal the python-int negacyclic product. 10e:
+   ``use_kernels=True`` is refused by he_mul and by the step.
 
 Before the last line it prints the nvidia-smi line, one JSON line of
 per-kernel numbers (``{"kernels": [...]}``: the headline times are those
@@ -139,8 +157,8 @@ step's first shape for a variant; every shape is under ``shapes``) and JSON
 lines for HE Mul's times, the batched step's and their traces;
 the circuit path's JSON line, the serving JSON line
 (``{"serving": {...}}``), the multi-host JSON line (``{"multihost":
-{...}}``), the bootstrap JSON line (``{"bootstrap": {...}}``) and the
-nvidia-smi line again; the last line
+{...}}``), the bootstrap JSON line (``{"bootstrap": {...}}``), the
+β = 2^64 JSON line (``{"beta64": {...}}``) and the nvidia-smi line again; the last line
 is ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -218,6 +236,14 @@ TRACED_EXPRS = 2
 # contract "promises no precision"), and the bound is reported beside it.
 BOOT_BATCH = 2
 BOOT_USABLE = 2.0 ** -6
+# Phase 10, the paper's β = 2^64 word mode on the plain path: the batched
+# step's batch, the ring of the card-against-CPU check (the largest whose
+# CPU run of keygen, two Galois keys, two encryptions, he_mul, rotate and
+# conjugate takes under about 30 s), and the sampled table entries and
+# product coefficients held against python ints
+BETA64_BATCH = 4
+BETA64_CPU_LOGN = 12
+BETA64_SAMPLES = 8
 SOURCES = {
     "modmul": ("kernels/csrc/modmul.cu",
                "src/repro/kernels/modmul/modmul.py:33"),
@@ -285,20 +311,29 @@ def median_ms(torch, fn, reps: int = 5) -> tuple[float, list]:
     return statistics.median(ms), ms
 
 
-def random_ciphertexts(torch, np, params, pk, dev, seeds) -> list:
+def random_ciphertexts(torch, np, params, pk, dev, seeds, cfg=None
+                       ) -> list:
     """Ciphertexts at logQ of random plaintexts below Q, encrypted from
-    `seeds` (encode's host-side big-integer work would only cost time)."""
+    `seeds` (encode's host-side big-integer work would only cost time);
+    words of params.beta_bits."""
     from repro_torch.core import bigint
     from repro_torch.core import heaan as H
+    from repro_torch.core.rns import DEFAULT
     qlimbs = params.qlimbs(params.logQ)
     rng = np.random.default_rng(8)
     cts = []
     for seed in seeds:
-        pt = torch.from_numpy(rng.integers(
-            0, 1 << 32, size=(params.N, qlimbs), dtype=np.uint64
-        ).astype(np.uint32).view(np.int32)).to(dev)
+        if params.beta_bits == 64:
+            words = rng.integers(0, 1 << 64, size=(params.N, qlimbs),
+                                 dtype=np.uint64).view(np.int64)
+        else:
+            words = rng.integers(0, 1 << 32, size=(params.N, qlimbs),
+                                 dtype=np.uint64).astype(np.uint32
+                                                         ).view(np.int32)
+        pt = torch.from_numpy(words).to(dev)
         cts.append(H.encrypt_coeffs(bigint.mask_bits(pt, params.logQ), pk,
-                                    params, params.N // 2, seed))
+                                    params, params.N // 2, seed,
+                                    cfg or DEFAULT))
     return cts
 
 
@@ -1825,6 +1860,285 @@ def drive_bootstrap_path(torch, np, dev, common, flush) -> dict:
         "kernels": kernels}
 
 
+def check_beta64_tables(torch, np, params, dev) -> dict:
+    """10a: the β = 2^64 tables at `params`, built (host) and moved to the
+    card, timed; sampled entries of every table on the card against
+    python ints."""
+    from repro_torch.core.context import make_context
+    from repro_torch.nt.primes import bit_reverse_indices, primitive_2nth_root
+    from repro_torch.nt.residue import limbs_to_int
+    t0 = time.perf_counter()
+    ctx = make_context(params, params.logQ, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    def host(t):
+        return t.cpu().numpy().view(np.uint64)
+
+    g = ctx.tables
+    primes, N = [int(p) for p in host(g.primes)], params.N
+    tab = {k: host(getattr(g, k)) for k in (
+        "psi_rev", "psi_rev_shoup", "ipsi_rev", "ipsi_rev_shoup", "crt_tb",
+        "crt_tb_shoup", "n_inv", "n_inv_shoup", "pprime", "r2")}
+    brv = bit_reverse_indices(N)
+    rng = np.random.default_rng(64)
+    checked = 0
+    for _ in range(BETA64_SAMPLES):
+        j = int(rng.integers(len(primes)))
+        p, k = primes[j], int(rng.integers(N))
+        psi = primitive_2nth_root(p, N)
+        kt = int(rng.integers(tab["crt_tb"].shape[1]))
+        want = {("psi_rev", k): pow(psi, brv[k], p),
+                ("ipsi_rev", k): pow(psi, -brv[k], p),
+                ("crt_tb", kt): pow(2, 64 * kt, p)}
+        for (name, col), v in want.items():
+            got = int(tab[name][j, col])
+            require(got == v, f"β=2^64 {name}[{j}, {col}] = {got}, not {v}")
+            require(int(tab[name + "_shoup"][j, col]) == (v << 64) // p,
+                    f"β=2^64 {name}_shoup[{j}, {col}]")
+        require(int(tab["n_inv"][j]) * N % p == 1
+                and int(tab["n_inv_shoup"][j]) ==
+                (int(tab["n_inv"][j]) << 64) // p
+                and int(tab["pprime"][j]) * p % 2**64 == 2**64 - 1
+                and int(tab["r2"][j]) == 2**128 % p,
+                f"β=2^64 N⁻¹, Montgomery constants of prime {j}")
+        checked += 8
+    for tabs in (ctx.icrt1, ctx.icrt2):
+        P = tabs.P_int
+        require(limbs_to_int(host(tabs.P_limbs), 64) == P
+                and limbs_to_int(host(tabs.P_half_limbs), 64) == P // 2,
+                f"β=2^64 P limbs of np {tabs.np_count}")
+        for j in rng.integers(tabs.np_count, size=BETA64_SAMPLES // 2):
+            p = primes[int(j)]
+            inv = int(host(tabs.inv_P)[j])
+            require(inv == pow(P // p, -1, p) and int(
+                host(tabs.inv_P_shoup)[j]) == (inv << 64) // p
+                and limbs_to_int(host(tabs.pdivp)[j], 64) == P // p,
+                f"β=2^64 iCRT tables of prime {j} at np {tabs.np_count}")
+            checked += 3
+    return {"build_s": build_s, "entries_checked": checked, "ctx": ctx}
+
+
+def beta64_ops(torch, np, params, dev, n_slots: int) -> dict:
+    """Keygen (seed 0), the rotation-by-1 and conjugation keys, two
+    encryptions, he_mul, he_rotate and he_conjugate at β = 2^64 on the
+    plain path on `dev`, with the seeds and messages of phase 3."""
+    from repro_torch.core import heaan as H
+    from repro_torch.core import rotate as R
+    from repro_torch.core.keys import keygen
+    from repro_torch.core.rns import PipelineConfig
+    plain = PipelineConfig(use_kernels=False)
+    rng = np.random.default_rng(7)
+    z1, z2 = (rng.random(n_slots) + 1j * rng.random(n_slots)
+              for _ in range(2))
+    sk, pk, evk = keygen(params, seed=0, cfg=plain, device=dev)
+    rk = R.rot_keygen(params, sk, 1, cfg=plain, device=dev)
+    ck = R.conj_keygen(params, sk, cfg=plain, device=dev)
+    c1 = H.encrypt_message(z1, pk, params, seed=11, cfg=plain)
+    c2 = H.encrypt_message(z2, pk, params, seed=12, cfg=plain)
+    return {"z": (z1, z2), "sk": sk, "pk": pk, "evk": evk, "rk": rk,
+            "ck": ck, "c1": c1, "c2": c2,
+            "mul": H.he_mul(c1, c2, evk, params, plain),
+            "rot": R.he_rotate(c1, 1, rk, params, plain),
+            "conj": R.he_conjugate(c1, ck, params, plain)}
+
+
+def words64(run: dict) -> list:
+    """(name, tensor) of every key and ciphertext word of a beta64_ops
+    run."""
+    out = [("pk." + f, getattr(run["pk"], f)) for f in ("ax", "bx")]
+    for key in ("evk", "rk", "ck"):
+        out += [(f"{key}.{f}", getattr(run[key], f)) for f in (
+            "ax_ev", "ax_ev_shoup", "bx_ev", "bx_ev_shoup")]
+    for ct in ("c1", "c2", "mul", "rot", "conj"):
+        out += [(f"{ct}.{f}", getattr(run[ct], f)) for f in ("ax", "bx")]
+    return out
+
+
+def negacyclic_coeff(a: list, b: list, n: int) -> int:
+    """Coefficient n of a·b mod X^N + 1 over the integers."""
+    N = len(a)
+    return (sum(a[i] * b[n - i] for i in range(n + 1))
+            - sum(a[i] * b[N + n - i] for i in range(n + 1, N)))
+
+
+def drive_beta64_path(torch, np, dev, common, mul32, galois32=None
+                      ) -> dict:
+    """Phase 10: the paper's β = 2^64 word mode at paper_params(beta_bits=
+    64) on the card, through the plain path (the kernels take β = 2^32
+    words, as the reference's do). `mul32` is (params, c1, c2, evk, sk) of
+    phase 3, timed beside it; `galois32`, phase 6's (rotation keys,
+    conjugation key), gives the β = 2^32 rotation errors beside."""
+    from repro_torch.core import rotate as R
+    from repro_torch.core import rns
+    from repro_torch.core import heaan as H
+    from repro_torch.core.params import HEParams, paper_params
+    from repro_torch.core.rns import PipelineConfig
+    from repro_torch.dist import he_pipeline as hp
+    from repro_torch.nt.residue import limbs_to_int
+    plain = PipelineConfig(use_kernels=False)
+    t_phase = time.perf_counter()
+    params = paper_params(beta_bits=64)
+
+    # ---- 10a: tables -----------------------------------------------------
+    tables = check_beta64_tables(torch, np, params, dev)
+    ctx = tables.pop("ctx")
+    print(f"β=2^64 tables (qlimbs {ctx.qlimbs}, np1 {ctx.np1}, np2 "
+          f"{ctx.np2}) built and moved in {tables['build_s']:.2f} s; "
+          f"{tables['entries_checked']} sampled entries == python ints",
+          flush=True)
+
+    # ---- 10b: keys, two encryptions, he_mul, rotate, conjugate ----------
+    common.reset_launches()
+    t0 = time.perf_counter()
+    run = beta64_ops(torch, np, params, dev, params.N // 4)
+    torch.cuda.synchronize()
+    ops_s = time.perf_counter() - t0
+    require(sum(common.LAUNCHES.values()) == 0,
+            f"the β=2^64 path launched a port kernel: {common.LAUNCHES}")
+    z1, z2 = run["z"]
+    c1, c2, evk = run["c1"], run["c2"], run["evk"]
+    require(c1.ax.dtype == torch.int64 and c1.ax.device == dev
+            and c1.ax.shape == (params.N, ctx.qlimbs),
+            "β=2^64 ciphertexts are not int64 words on the card")
+    errs = {
+        "mul": np.abs(H.decrypt_message(H.rescale(run["mul"], params),
+                                        run["sk"], params, plain)
+                      - z1 * z2).max(),
+        "rotate": np.abs(H.decrypt_message(run["rot"], run["sk"], params,
+                                           plain) - np.roll(z1, -1)).max(),
+        "conjugate": np.abs(H.decrypt_message(run["conj"], run["sk"], params,
+                                              plain) - np.conj(z1)).max()}
+    errs = {k: float(v) for k, v in errs.items()}
+    # tests/test_heaan.py's he_mul tolerance; a rotation at paper params
+    # is held to serve_he's line for every served request (phase 7), as
+    # it keeps the fresh scale and the key switch's noise of N = 2^16
+    limits = {"mul": 1e-3, "rotate": 1e-2, "conjugate": 1e-2}
+    require(all(np.isfinite(v) and v < limits[k] for k, v in errs.items()),
+            f"β=2^64 decryption errors {errs} (limits {limits})")
+    p32, a32, b32, evk32, sk32 = mul32
+    errs32 = {}
+    if galois32 is not None:
+        rks32, ck32 = galois32
+        errs32 = {k: float(np.abs(H.decrypt_message(ct, sk32, p32) - want)
+                           .max()) for k, ct, want in (
+            ("rotate", R.he_rotate(a32, 1, rks32[1], p32), np.roll(z1, -1)),
+            ("conjugate", R.he_conjugate(a32, ck32, p32), np.conj(z1)))}
+    print(f"β=2^64 keygen + 2 Galois keys + 2 encryptions + he_mul + "
+          f"rotate + conjugate in {ops_s:.2f} s, no port kernel launched; "
+          f"max |err| {errs} (limits {limits}); the same message at "
+          f"β=2^32 {errs32}", flush=True)
+
+    timed = {
+        "beta64_plain": lambda: H.he_mul(c1, c2, evk, params, plain),
+        "beta32_plain": lambda: H.he_mul(a32, b32, evk32, p32, plain),
+        "beta32_kernels": lambda: H.he_mul(a32, b32, evk32, p32)}
+    he_mul = {}
+    for name, fn in timed.items():
+        med, ms = median_ms(torch, fn, 5)
+        prof = profile(torch, fn)
+        he_mul[name] = {
+            "ms_median": med, "ms": ms, "device_ms": prof["device_ms"],
+            "busy_share": prof["busy_share"],
+            "device_events": prof["device_events"],
+            "port_kernel_launches": prof["port_kernel_launches"]}
+    require(he_mul["beta64_plain"]["port_kernel_launches"] == 0,
+            "the β=2^64 he_mul launched a port kernel")
+    print("he_mul, median of 5 (wall) and one profiled call (device): "
+          + "; ".join(f"{k} {v['ms_median']:.1f} ms wall, "
+                      f"{v['device_ms']:.1f} ms device in "
+                      f"{v['device_events']} events"
+                      for k, v in he_mul.items()), flush=True)
+
+    # ---- 10c: the batched step at B = BETA64_BATCH -----------------------
+    st = hp.he_static(params, params.logQ)
+    require(st.dtype == torch.int64, f"HEStatic.dtype {st.dtype}")
+    t1, t2, ek = hp.runtime_tables(ctx, evk)
+    cts = random_ciphertexts(torch, np, params, run["pk"], dev,
+                             range(40, 40 + 2 * BETA64_BATCH), plain)
+    args = [torch.stack([getattr(c, f) for c in cts[s::2]])
+            for s, f in ((0, "ax"), (0, "bx"), (1, "ax"), (1, "bx"))]
+    step = hp.make_he_mul_step(st, dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ax3, bx3 = step(t1, t2, ek, *args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    for i in range(BETA64_BATCH):
+        ref = H.he_mul(cts[2 * i], cts[2 * i + 1], evk, params, plain)
+        require(torch.equal(ax3[i], ref.ax) and torch.equal(bx3[i], ref.bx),
+                f"β=2^64 step item {i} differs from he_mul of its pair")
+    step_med, step_ms = median_ms(
+        torch, lambda: step(t1, t2, ek, *args), 5)
+    print(f"β=2^64 step, B = {BETA64_BATCH}: == per-pair he_mul bit for "
+          f"bit; {step_med:.1f} ms a step ({step_med / BETA64_BATCH:.1f} "
+          f"a HE Mul); peak {peak / 2**20:.0f} MiB above the "
+          f"{base / 2**30:.2f} GiB held", flush=True)
+
+    # ---- 10d: the card against the CPU, and against python ints ---------
+    small = HEParams(logN=BETA64_CPU_LOGN, logQ=params.logQ,
+                     logp=params.logp, log_delta=params.log_delta,
+                     beta_bits=64)
+    t0 = time.perf_counter()
+    cpu = beta64_ops(torch, np, small, torch.device("cpu"), small.N // 4)
+    cpu_s = time.perf_counter() - t0
+    card = beta64_ops(torch, np, small, dev, small.N // 4)
+    compared = 0
+    for (name, x), (_, y) in zip(words64(cpu), words64(card)):
+        require(torch.equal(x, y.cpu()),
+                f"β=2^64 {name} at logN {small.logN}: card != CPU")
+        compared += x.numel()
+    g = ctx.tables
+    a, b = c1.bx.contiguous(), c2.bx.contiguous()
+    out_limbs = ctx.icrt1.accum_limbs
+    prod = rns.from_eval(rns.eval_mul(rns.to_eval(a, ctx.np1, g, plain),
+                                      rns.to_eval(b, ctx.np1, g, plain), g,
+                                      plain),
+                         params, out_limbs, g, plain)
+    a_int = [limbs_to_int(r, 64) for r in a.cpu().numpy().view(np.uint64)]
+    b_int = [limbs_to_int(r, 64) for r in b.cpu().numpy().view(np.uint64)]
+    rows = prod.cpu().numpy().view(np.uint64)
+    width = 64 * out_limbs
+    coeffs = sorted({0, params.N - 1, *map(int, np.random.default_rng(
+        10).integers(params.N, size=BETA64_SAMPLES - 2))})
+    for n in coeffs:
+        v = limbs_to_int(rows[n], 64)
+        v = v - (1 << width) if v >> (width - 1) else v
+        require(v == negacyclic_coeff(a_int, b_int, n),
+                f"β=2^64 region-1 product coefficient {n} != python int")
+    print(f"β=2^64 card == CPU bit for bit at logN {small.logN} "
+          f"({compared} words of keys and ciphertexts; the CPU run "
+          f"{cpu_s:.1f} s); {len(coeffs)} coefficients of region 1's "
+          f"bx1·bx2 at paper params == python-int negacyclic product",
+          flush=True)
+
+    # ---- 10e: the kernels refuse β = 2^64 --------------------------------
+    for what, fn in (("he_mul", lambda: H.he_mul(c1, c2, evk, params)),
+                     ("make_he_mul_step",
+                      lambda: hp.make_he_mul_step(st, dev,
+                                                  use_kernels=True))):
+        try:
+            fn()
+        except ValueError as exc:
+            require("use_kernels=False" in str(exc), f"{what}: {exc}")
+        else:
+            raise SmokeFailure(f"{what} ran use_kernels=True at β=2^64")
+    phase_s = time.perf_counter() - t_phase
+    print(f"β=2^64 use_kernels=True refused by he_mul and the step; phase "
+          f"10 took {phase_s:.1f} s", flush=True)
+    return {
+        "params": "paper_params(beta_bits=64): logN=16 logQ=1200 beta=2^64",
+        "qlimbs": ctx.qlimbs, "np1": ctx.np1, "np2": ctx.np2,
+        "tables": tables, "ops_s": ops_s, "errors": errs,
+        "limits": limits, "beta32_errors": errs32, "he_mul": he_mul,
+        "step": {"batch": BETA64_BATCH, "ms_median": step_med,
+                 "ms": step_ms, "peak_bytes": peak, "held_bytes": base},
+        "cpu_check": {"logN": small.logN, "words": compared,
+                      "cpu_s": cpu_s},
+        "product_coeffs": coeffs, "phase_s": phase_s}
+
+
 def profile(torch, fn) -> dict:
     """Device time by kernel name over one call of fn, the busy share, and
     the device time of the port's kernels (in all and by kernel) against
@@ -1917,6 +2231,9 @@ def main() -> int:
                                      serving.pop("stream"))
     print_multihost(multihost, serving)
     boot = drive_bootstrap_path(torch, np, dev, common, flush)
+    beta64 = drive_beta64_path(torch, np, dev, common,
+                               (params, c1, c2, evk, path["sk"]),
+                               circuit["keys"])
     per_he_mul = {key: sum(n * r[key] for k, counts in
                            HE_MUL_SHAPE_LAUNCHES.items()
                            for n, r in zip(counts, per_kernel[k]))
@@ -2006,6 +2323,7 @@ def main() -> int:
         "params": "paper_params(): logN=16 logQ=1200 beta=2^32",
         **multihost, "card": card}}))
     print(json.dumps({"bootstrap": {**boot, "card": card}}))
+    print(json.dumps({"beta64": {**beta64, "card": card}}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

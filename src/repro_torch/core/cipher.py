@@ -1,7 +1,8 @@
 """Ciphertext / key containers as dataclasses of tensors.
 
-Limb and residue tensors are ``torch.int32`` holding u32 bit patterns; the
-field names and shapes are the JAX package's, so
+Limb and residue tensors are the port's stored words: ``torch.int32``
+holding u32 bit patterns at β = 2^32, ``torch.int64`` holding u64 bit
+patterns at β = 2^64. The field names and shapes are the JAX package's, so
 :mod:`repro_torch.convert` carries values across field by field.
 """
 

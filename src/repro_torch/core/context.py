@@ -6,10 +6,15 @@ The paper's functions consume precomputed data:
   - iNTT: inverse-ψ powers (+Shoup) and N⁻¹ mod p.
   - iCRT: (P/p_j)⁻¹ mod p_j (+Shoup), limbs of P/p_j, and P itself.
 
-Tables are built host-side in numpy with exact python-int arithmetic, in
-the same way and with the same values as the JAX package's tables, then
-moved to a device once per (params, device) by :func:`device_tables` and
-:func:`device_icrt_tables`:
+Tables are built host-side with exact arithmetic and the same values as
+the JAX package's tables, then moved to a device once per (params, device)
+by :func:`device_tables` and :func:`device_icrt_tables`. At β = 2^32 they
+are numpy on 64-bit products, as in the reference. At β = 2^64 the
+reference loops over python ints entry by entry; here the power tables
+double a block at a time with the port's exact Shoup product and the
+Shoup companions are the port's long division
+(:func:`repro_torch.core.wordops.shoup_companion`), both vectorized on
+CPU tensors (the tests hold them equal to the reference's).
 
   - :class:`GlobalTables` — everything that depends only on the prime pool
     (built once per parameter set; sliced per level).
@@ -19,7 +24,9 @@ moved to a device once per (params, device) by :func:`device_tables` and
     both regions' device tables.
 
 On a device every uint32 table is a ``torch.int32`` tensor holding the u32
-bit pattern (the port's word storage, see :mod:`repro_torch.core.wordops`).
+bit pattern and every uint64 table a ``torch.int64`` tensor holding the
+u64 bit pattern (the port's word storage, see
+:mod:`repro_torch.core.wordops`).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.params import HEParams
+from repro_torch.core.wordops import shoup_companion, shoup_modmul
 from repro_torch.nt.primes import bit_reverse_indices, primitive_2nth_root
 from repro_torch.nt.residue import int_to_limbs
 
@@ -54,9 +62,25 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-def _pow_table_vec(bases: np.ndarray, primes: np.ndarray, n: int
-                   ) -> np.ndarray:
+def _np_dtype(beta_bits: int):
+    return np.uint32 if beta_bits == 32 else np.uint64
+
+
+def _t64(a: np.ndarray) -> torch.Tensor:
+    """uint64 numpy words -> a CPU int64 tensor of their bit patterns."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint64)
+                            .view(np.int64))
+
+
+def _np64(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint64)
+
+
+def _pow_table_vec(bases: np.ndarray, primes: np.ndarray, n: int,
+                   beta_bits: int = 32) -> np.ndarray:
     """powers[j, k] = bases[j]^k mod primes[j], k in [0, n). Exact."""
+    if beta_bits == 64:
+        return _pow_table64(bases, primes, n)
     b = bases.astype(np.uint64)
     p = primes.astype(np.uint64)
     col = np.ones(len(primes), dtype=np.uint64)
@@ -67,8 +91,29 @@ def _pow_table_vec(bases: np.ndarray, primes: np.ndarray, n: int
     return res.astype(np.uint32)
 
 
-def _shoup_vec(vals: np.ndarray, primes: np.ndarray) -> np.ndarray:
+def _pow_table64(bases: np.ndarray, primes: np.ndarray, n: int
+                 ) -> np.ndarray:
+    """:func:`_pow_table_vec` for 64-bit words: columns [m, 2m) are
+    columns [0, m) times b^m, one exact Shoup product per doubling."""
+    p = _t64(primes)[:, None]
+    res = torch.ones((len(primes), n), dtype=torch.int64)
+    m = 1
+    while m < n:
+        w = min(m, n - m)
+        y = np.array([pow(int(b), m, int(q)) for b, q in zip(bases, primes)],
+                     dtype=np.uint64)
+        res[:, m: m + w] = shoup_modmul(
+            res[:, :w], _t64(y)[:, None],
+            _t64(_shoup_vec(y, primes, 64))[:, None], p, 64)
+        m *= 2
+    return _np64(res)
+
+
+def _shoup_vec(vals: np.ndarray, primes: np.ndarray, beta_bits: int = 32
+               ) -> np.ndarray:
     """floor(vals·β / p); vals is (np,) or (np, K), primes is (np,). Exact."""
+    if beta_bits == 64:
+        return _np64(shoup_companion(_t64(vals), _t64(primes), 64))
     p_b = primes.reshape(-1, *([1] * (vals.ndim - 1)))
     return ((vals.astype(np.uint64) << np.uint64(32))
             // p_b.astype(np.uint64)).astype(np.uint32)
@@ -103,48 +148,49 @@ class GlobalTables:
 
 @lru_cache(maxsize=8)
 def build_global_tables(params: HEParams) -> GlobalTables:
-    if params.beta_bits != 32:
-        raise NotImplementedError("repro_torch runs β = 2^32 only")
+    beta = params.beta_bits
+    dt = _np_dtype(beta)
     N = params.N
     primes_py = params.primes[:params.max_np]
-    primes = np.array(primes_py, dtype=np.uint32)
+    primes = np.array(primes_py, dtype=dt)
 
     # --- NTT twiddles ------------------------------------------------------
     psis = np.array(
-        [primitive_2nth_root(p, N) for p in primes_py], dtype=np.uint32)
+        [primitive_2nth_root(p, N) for p in primes_py], dtype=dt)
     ipsis = np.array(
         [pow(int(w), int(p) - 2, int(p)) for w, p in zip(psis, primes_py)],
-        dtype=np.uint32)
+        dtype=dt)
     brv = np.array(bit_reverse_indices(N), dtype=np.int64)
-    psi_rev = np.ascontiguousarray(_pow_table_vec(psis, primes, N)[:, brv])
-    ipsi_rev = np.ascontiguousarray(_pow_table_vec(ipsis, primes, N)[:, brv])
+    psi_rev = np.ascontiguousarray(
+        _pow_table_vec(psis, primes, N, beta)[:, brv])
+    ipsi_rev = np.ascontiguousarray(
+        _pow_table_vec(ipsis, primes, N, beta)[:, brv])
     n_inv = np.array(
-        [pow(N, int(p) - 2, int(p)) for p in primes_py], dtype=np.uint32)
+        [pow(N, int(p) - 2, int(p)) for p in primes_py], dtype=dt)
 
     # --- Montgomery constants ---------------------------------------------
-    R = 1 << 32
-    pprime = np.array([(-pow(p, -1, R)) % R for p in primes_py],
-                      dtype=np.uint32)
-    r2 = np.array([(R * R) % p for p in primes_py], dtype=np.uint32)
+    R = 1 << beta
+    pprime = np.array([(-pow(p, -1, R)) % R for p in primes_py], dtype=dt)
+    r2 = np.array([(R * R) % p for p in primes_py], dtype=dt)
 
     # --- CRT table: β^k mod p ---------------------------------------------
     max_in_limbs = params.limbs_for_bits(2 * params.logQ) + 1
-    beta_mod = np.array([R % p for p in primes_py], dtype=np.uint32)
-    crt_tb = _pow_table_vec(beta_mod, primes, max_in_limbs)
+    beta_mod = np.array([R % p for p in primes_py], dtype=dt)
+    crt_tb = _pow_table_vec(beta_mod, primes, max_in_limbs, beta)
 
     return GlobalTables(
         params=params,
         primes=primes,
         psi_rev=psi_rev,
-        psi_rev_shoup=_shoup_vec(psi_rev, primes),
+        psi_rev_shoup=_shoup_vec(psi_rev, primes, beta),
         ipsi_rev=ipsi_rev,
-        ipsi_rev_shoup=_shoup_vec(ipsi_rev, primes),
+        ipsi_rev_shoup=_shoup_vec(ipsi_rev, primes, beta),
         n_inv=n_inv,
-        n_inv_shoup=_shoup_vec(n_inv, primes),
+        n_inv_shoup=_shoup_vec(n_inv, primes, beta),
         pprime=pprime,
         r2=r2,
         crt_tb=crt_tb,
-        crt_tb_shoup=_shoup_vec(crt_tb, primes),
+        crt_tb_shoup=_shoup_vec(crt_tb, primes, beta),
         p_inv_f64=1.0 / primes.astype(np.float64),
     )
 
@@ -167,8 +213,8 @@ class IcrtTables:
 
 @lru_cache(maxsize=None)
 def build_icrt_tables(params: HEParams, np_count: int) -> IcrtTables:
-    if params.beta_bits != 32:
-        raise NotImplementedError("repro_torch runs β = 2^32 only")
+    beta = params.beta_bits
+    dt = _np_dtype(beta)
     primes_py = params.primes[:np_count]
     P = math.prod(primes_py)
     P_bits = P.bit_length()
@@ -178,10 +224,10 @@ def build_icrt_tables(params: HEParams, np_count: int) -> IcrtTables:
     accum_limbs = params.limbs_for_bits(
         P_bits + math.ceil(math.log2(np_count)) + 1) + 2
 
-    inv_P = np.array([pow(P // p, -1, p) for p in primes_py],
-                     dtype=np.uint32)
-    primes = np.array(primes_py, dtype=np.uint32)
-    pdivp = np.stack([int_to_limbs(P // p, plimbs, 32) for p in primes_py])
+    inv_P = np.array([pow(P // p, -1, p) for p in primes_py], dtype=dt)
+    primes = np.array(primes_py, dtype=dt)
+    pdivp = np.stack([int_to_limbs(P // p, plimbs, beta)
+                      for p in primes_py])
 
     return IcrtTables(
         np_count=np_count,
@@ -190,22 +236,24 @@ def build_icrt_tables(params: HEParams, np_count: int) -> IcrtTables:
         plimbs=plimbs,
         accum_limbs=accum_limbs,
         inv_P=inv_P,
-        inv_P_shoup=_shoup_vec(inv_P, primes),
+        inv_P_shoup=_shoup_vec(inv_P, primes, beta),
         pdivp=pdivp,
-        P_limbs=int_to_limbs(P, accum_limbs, 32),
-        P_half_limbs=int_to_limbs(P // 2, accum_limbs, 32),
+        P_limbs=int_to_limbs(P, accum_limbs, beta),
+        P_half_limbs=int_to_limbs(P // 2, accum_limbs, beta),
     )
 
 
 def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if a.dtype == np.uint32:
         a = a.view(np.int32)
+    elif a.dtype == np.uint64:
+        a = a.view(np.int64)
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def _on_device(tables, device: torch.device):
     """The same tables with every array as a tensor on `device` (uint32
-    arrays become int32 bit patterns)."""
+    and uint64 arrays become int32 and int64 bit patterns)."""
     return dataclasses.replace(tables, **{
         f.name: _tensor(getattr(tables, f.name), device)
         for f in dataclasses.fields(tables)

@@ -20,17 +20,24 @@ The iCRT kernel's own formulation, column sums with a running carry, is
 not a strategy: its plain version (kernels/icrt/ref.py) reaches it through
 ``_icrt(..., _accum_columns)``.
 
-int32 words in and out, int64 inside; every strategy is exact, so all give
-the same words.
+Words in and out are the port's stored words at either β
+(:mod:`repro_torch.core.wordops`), int64 inside. At β = 2^64 the routing
+is the reference's at ``uint64``: the wide accumulators of CRT "matmul",
+"mod2" and "mod4" and iCRT "matmul" have no room, so they run as "acc3"
+(the carries of a three-word accumulator come from unsigned compares).
+Every strategy is exact, so all give the same words.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
 from repro_torch.core import bigint
 from repro_torch.core.wordops import (
     M32, acc3_add_product, cond_reduce, modadd, narrow, shoup_modmul, wide,
+    word_bits,
 )
 
 __all__ = ["crt", "icrt", "finalize_accum"]
@@ -52,6 +59,8 @@ def crt(x: torch.Tensor, tb: torch.Tensor, tb_shoup: torch.Tensor,
     if tb.shape[1] < max(K, 3):
         raise ValueError(f"CRT table has {tb.shape[1]} columns; "
                          f"needs {max(K, 3)}")
+    if word_bits(x) == 64:
+        return _crt64(x, tb, tb_shoup, primes, strategy)
     xw, t, p = wide(x), wide(tb), wide(primes)[:, None]
     zeros = torch.zeros((t.shape[0], N), dtype=torch.int64, device=x.device)
 
@@ -94,12 +103,32 @@ def crt(x: torch.Tensor, tb: torch.Tensor, tb_shoup: torch.Tensor,
     raise ValueError(f"unknown CRT strategy {strategy!r}")
 
 
-def _fold3(a0, a1, a2, tb, tb_shoup, primes):
+def _crt64(x, tb, tb_shoup, primes, strategy: str) -> torch.Tensor:
+    """:func:`crt` on 64-bit words: "shoup", or "acc3" for the others."""
+    if strategy not in ("matmul", "shoup", "mod2", "mod4", "acc3"):
+        raise ValueError(f"unknown CRT strategy {strategy!r}")
+    p = primes[:, None]
+    if strategy == "shoup":
+        acc = torch.zeros((tb.shape[0], x.shape[0]), dtype=torch.int64,
+                          device=x.device)
+        for k in range(x.shape[1]):
+            acc = modadd(acc, shoup_modmul(x[None, :, k], tb[:, k, None],
+                                           tb_shoup[:, k, None], p, 64), p)
+        return acc
+    a2 = a1 = a0 = torch.zeros((tb.shape[0], x.shape[0]), dtype=torch.int64,
+                               device=x.device)
+    for k in range(x.shape[1]):
+        a2, a1, a0 = acc3_add_product(a2, a1, a0, x[None, :, k],
+                                      tb[:, k, None], 64)
+    return _fold3(a0, a1, a2, tb, tb_shoup, primes, 64)
+
+
+def _fold3(a0, a1, a2, tb, tb_shoup, primes, bits: int = 32):
     """Reduce a 3-word accumulator via Shoup multiplies by β^k mod p."""
     p = primes[:, None]
-    r0 = shoup_modmul(a0, tb[:, 0, None], tb_shoup[:, 0, None], p)
-    r1 = shoup_modmul(a1, tb[:, 1, None], tb_shoup[:, 1, None], p)
-    r2 = shoup_modmul(a2, tb[:, 2, None], tb_shoup[:, 2, None], p)
+    r0 = shoup_modmul(a0, tb[:, 0, None], tb_shoup[:, 0, None], p, bits)
+    r1 = shoup_modmul(a1, tb[:, 1, None], tb_shoup[:, 1, None], p, bits)
+    r2 = shoup_modmul(a2, tb[:, 2, None], tb_shoup[:, 2, None], p, bits)
     return cond_reduce(r0 + r1 + r2, p, 4)
 
 
@@ -120,23 +149,29 @@ def icrt(r: torch.Tensor, primes: torch.Tensor, inv_P: torch.Tensor,
     """
     if strategy not in _ACCUM:
         raise ValueError(f"unknown iCRT strategy {strategy!r}")
+    accumulate = _ACCUM[strategy]
+    if word_bits(r) == 64:
+        accumulate = partial(_accum_naive if strategy == "naive"
+                             else _accum_acc3, bits=64)
     return _icrt(r, primes, inv_P, inv_P_shoup, pdivp, P_limbs, P_half,
-                 p_inv_f64, out_limbs, _ACCUM[strategy])
+                 p_inv_f64, out_limbs, accumulate)
 
 
 def _icrt(r, primes, inv_P, inv_P_shoup, pdivp, P_limbs, P_half, p_inv_f64,
           out_limbs: int, accumulate) -> torch.Tensor:
     """:func:`icrt` with the accumulator sum `accumulate`."""
+    bits = word_bits(r)
     p = wide(primes)[:, None]
     # (1) Hadamard: temp[j,n] = mod(r[j,n]·(P/p_j)⁻¹, p_j)   [Shoup]
     temp = shoup_modmul(wide(r), wide(inv_P)[:, None],
-                        wide(inv_P_shoup)[:, None], p)
+                        wide(inv_P_shoup)[:, None], p, bits)
     # (2) accum[n] = Σ_j temp[j,n]·(P/p_j)
     accum = accumulate(temp, wide(pdivp), P_limbs.shape[0])
     # (3) mod P via the float quotient: accum/P = Σ_j temp_j/p_j exactly;
-    # the f64 error is ≪ 1, so ±1 corrections make it exact.
+    # the f64 error is ≪ 1 (temp < p < 2^60 at either β), so ±1
+    # corrections make it exact.
     s = torch.floor((temp.double() * p_inv_f64[:, None]).sum(0)).long()
-    return finalize_accum(accum, s, P_limbs, P_half, out_limbs)
+    return finalize_accum(accum, s, P_limbs, P_half, out_limbs, bits=bits)
 
 
 def _carry_columns(cols: torch.Tensor) -> torch.Tensor:
@@ -168,22 +203,22 @@ def _accum_matmul(temp: torch.Tensor, pdivp: torch.Tensor,
 
 
 def _accum_acc3(temp: torch.Tensor, pdivp: torch.Tensor,
-                accum_limbs: int) -> torch.Tensor:
+                accum_limbs: int, bits: int = 32) -> torch.Tensor:
     """Algo 6 with per-(n, k) three-word accumulators (GPU-C flavour)."""
     N, PL = temp.shape[1], pdivp.shape[1]
     a2 = a1 = a0 = torch.zeros((N, PL), dtype=torch.int64,
                                device=temp.device)
     for j in range(temp.shape[0]):
         a2, a1, a0 = acc3_add_product(a2, a1, a0, temp[j][:, None],
-                                      pdivp[j][None, :])
+                                      pdivp[j][None, :], bits)
     # assemble Σ_k (a0 + a1β + a2β²)_k · β^k with three shifted adds
     acc = _placed(a0, 0, accum_limbs)
-    acc = bigint.add(acc, _placed(a1, 1, accum_limbs))
-    return bigint.add(acc, _placed(a2, 2, accum_limbs))
+    acc = bigint.add(acc, _placed(a1, 1, accum_limbs), bits=bits)
+    return bigint.add(acc, _placed(a2, 2, accum_limbs), bits=bits)
 
 
 def _accum_naive(temp: torch.Tensor, pdivp: torch.Tensor,
-                 accum_limbs: int) -> torch.Tensor:
+                 accum_limbs: int, bits: int = 32) -> torch.Tensor:
     """Paper Algo 5: a word × BigInt product and a BigInt add per prime
     (N-parallel only; the slow baseline)."""
     N, PL = temp.shape[1], pdivp.shape[1]
@@ -191,7 +226,8 @@ def _accum_naive(temp: torch.Tensor, pdivp: torch.Tensor,
                       device=temp.device)
     for j in range(temp.shape[0]):
         row = _placed(pdivp[j].expand(N, PL), 0, accum_limbs)
-        acc = bigint.add(acc, bigint.mul_word(row, temp[j]))
+        acc = bigint.add(acc, bigint.mul_word(row, temp[j], bits=bits),
+                         bits=bits)
     return acc
 
 
@@ -234,26 +270,30 @@ _ACCUM = {"matmul": _accum_matmul, "acc3": _accum_acc3,
           "naive": _accum_naive}
 
 
-def finalize_accum(accum, s, P_limbs, P_half, out_limbs: int):
+def finalize_accum(accum, s, P_limbs, P_half, out_limbs: int, *,
+                   bits: int = 32):
     """accum − s·P with ±1 quotient corrections, center-lift, truncate.
 
-    `s` may be off by one in either direction; the correction ladder makes
-    the result exact. Returns int32 words.
+    `accum` holds int64 limbs of β = 2^bits (values at 32, bit patterns at
+    64); `s` may be off by one in either direction; the correction ladder
+    makes the result exact. Returns stored words of β = 2^bits.
     """
     N, accum_limbs = accum.shape
     P = wide(P_limbs)
-    red = bigint.sub(accum, bigint.mul_word(P.expand(N, accum_limbs), s))
+    red = bigint.sub(accum, bigint.mul_word(P.expand(N, accum_limbs), s,
+                                            bits=bits), bits=bits)
     for _ in range(2):   # s may be off by one in either direction
-        neg = bigint.sign_bit(red)
-        red = bigint.select(neg, bigint.add(red, P), red)
-        too_big = bigint.compare_ge(red, P) & ~neg
-        red = bigint.select(too_big, bigint.sub(red, P), red)
+        neg = bigint.sign_bit(red, bits=bits)
+        red = bigint.select(neg, bigint.add(red, P, bits=bits), red)
+        too_big = bigint.compare_ge(red, P, bits=bits) & ~neg
+        red = bigint.select(too_big, bigint.sub(red, P, bits=bits), red)
 
     # center-lift: v >= P/2  ⇒  v -= P  (two's complement wrap is fine)
-    high = bigint.compare_ge(red, P_half)
-    red = bigint.select(high, bigint.sub(red, P), red)
+    high = bigint.compare_ge(red, P_half, bits=bits)
+    red = bigint.select(high, bigint.sub(red, P, bits=bits), red)
     if out_limbs <= accum_limbs:
-        return narrow(red[:, :out_limbs])
-    fill = torch.where(bigint.sign_bit(red), M32, 0)
+        return narrow(red[:, :out_limbs], bits)
+    fill = torch.where(bigint.sign_bit(red, bits=bits),
+                       -1 if bits == 64 else M32, 0)
     return narrow(torch.cat(
-        [red, fill[:, None].expand(N, out_limbs - accum_limbs)], -1))
+        [red, fill[:, None].expand(N, out_limbs - accum_limbs)], -1), bits)

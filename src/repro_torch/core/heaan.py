@@ -18,6 +18,8 @@ Because q and Q are powers of two (faithful HEAAN), mod-q is masking and
 ÷Q / rescale are rounding bit-shifts — all BigInt division lives in iCRT.
 Every op runs on the device of its operands; the randomness is host-side
 numpy with the JAX package's draws, so a seed gives identical ciphertexts.
+Limbs are the stored words of ``params.beta_bits`` (int32 at β = 2^32,
+int64 at β = 2^64; :mod:`repro_torch.core.wordops`).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from repro_torch.core.encoding import decode, encode
 from repro_torch.core.keys import sample_gauss, sample_zo
 from repro_torch.core.params import HEParams
 from repro_torch.core.rns import DEFAULT, PipelineConfig
-from repro_torch.core.wordops import M32, narrow, wide
+from repro_torch.core.wordops import M32, narrow, wide, word_bits
 from repro_torch.nt.residue import ints_to_limb_array
 
 __all__ = [
@@ -73,9 +75,9 @@ def encrypt_coeffs(pt_limbs: torch.Tensor, pk: PublicKey, params: HEParams,
         return rns.from_eval(prod, params, qlimbs, g, cfg)
 
     e1 = rns.small_ints_to_limbs(sample_gauss(rng, N, params.sigma),
-                                 qlimbs, dev)
+                                 qlimbs, dev, params.beta_bits)
     e0 = rns.small_ints_to_limbs(sample_gauss(rng, N, params.sigma),
-                                 qlimbs, dev)
+                                 qlimbs, dev, params.beta_bits)
     ax = bigint.mask_bits(bigint.add(mul_u(pk.ax), e1), logQ)
     bx = bigint.mask_bits(
         bigint.add(bigint.add(mul_u(pk.bx), e0), pt_limbs), logQ)
@@ -201,8 +203,9 @@ def encode_plain(z: np.ndarray, params: HEParams, logq: int,
     coeffs = encode(z, params, log_delta=log_delta)
     q = 1 << logq
     enc = ints_to_limb_array([int(c) % q for c in coeffs],
-                             params.qlimbs(logq), 32)
-    return torch.from_numpy(enc.view(np.int32)).to(resolve_device(device))
+                             params.qlimbs(logq), params.beta_bits)
+    stored = enc.view(np.int32 if params.beta_bits == 32 else np.int64)
+    return torch.from_numpy(stored).to(resolve_device(device))
 
 
 def he_mul_plain(ct: Ciphertext, pt_limbs: torch.Tensor, params: HEParams,
@@ -259,19 +262,20 @@ def he_mod_down(ct: Ciphertext, params: HEParams, logq2: int) -> Ciphertext:
         logq=logq2, logp=ct.logp, n_slots=ct.n_slots)
 
 
-def _center(x: torch.Tensor, logq: int) -> torch.Tensor:
-    """The mod-q lift of int64 limbs (..., L) sign-extended above bit
-    logq − 1 across all L limbs. Indexing is on the trailing limb axis
-    only, so leading batch axes pass through."""
-    sign = ((x[..., (logq - 1) // 32] >> ((logq - 1) % 32)) & 1).bool()
-    w, r = divmod(logq, 32)
+def _center(x: torch.Tensor, logq: int, beta: int) -> torch.Tensor:
+    """The mod-q lift of int64 limbs (..., L) of β = 2^beta, sign-extended
+    above bit logq − 1 across all L limbs. Indexing is on the trailing
+    limb axis only, so leading batch axes pass through."""
+    ones = M32 if beta == 32 else -1    # a limb of all ones
+    sign = ((x[..., (logq - 1) // beta] >> ((logq - 1) % beta)) & 1).bool()
+    w, r = divmod(logq, beta)
     limb_sel = torch.arange(x.shape[-1], device=x.device) >= (
         w + (1 if r else 0))
-    lifted = torch.where(limb_sel & sign[..., None], M32,
+    lifted = torch.where(limb_sel & sign[..., None], ones,
                          torch.where(limb_sel, 0, x))
     if r:
         lifted[..., w] = x[..., w] | torch.where(
-            sign, (M32 << r) & M32, 0)
+            sign, (ones << r) & ones, 0)
     return lifted
 
 
@@ -287,13 +291,14 @@ def mod_raise_poly(poly: torch.Tensor, params: HEParams, logq: int,
     """
     assert 0 < logq < logq2 <= params.logQ
     L2 = params.qlimbs(logq2)
+    beta = word_bits(poly)
     x = wide(poly)
     pad = L2 - x.shape[-1]
     if pad > 0:
         x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], -1)
     else:
         x = x[..., :L2]
-    return bigint.mask_bits(narrow(_center(x, logq)), logq2)
+    return bigint.mask_bits(narrow(_center(x, logq, beta), beta), logq2)
 
 
 def he_mod_raise(ct: Ciphertext, params: HEParams, logq2: int
@@ -320,7 +325,9 @@ def rescale_poly(poly: torch.Tensor, params: HEParams, logq: int,
     """
     logq2 = logq - dlogp
     assert logq2 > 0, "ciphertext exhausted (needs bootstrapping)"
-    out = bigint.shift_right_round(narrow(_center(wide(poly), logq)), dlogp)
+    beta = word_bits(poly)
+    out = bigint.shift_right_round(
+        narrow(_center(wide(poly), logq, beta), beta), dlogp)
     return bigint.mask_bits(out, logq2)[..., :max(params.qlimbs(logq2), 1)]
 
 

@@ -17,7 +17,9 @@ from repro_torch.core.cipher import EvalKey, PublicKey, SecretKey
 from repro_torch.core.context import device_tables, resolve_device
 from repro_torch.core.params import HEParams
 from repro_torch.core.rns import DEFAULT, PipelineConfig
-from repro_torch.core.wordops import narrow, wide
+from repro_torch.core.wordops import (
+    narrow, shoup_companion, wide, word_bits,
+)
 
 __all__ = [
     "sample_hwt", "sample_zo", "sample_gauss", "sample_uniform_limbs",
@@ -48,18 +50,27 @@ def sample_gauss(rng: np.random.Generator, N: int, sigma: float
 
 
 def sample_uniform_limbs(rng: np.random.Generator, N: int, bits: int,
-                         n_limbs: int, device: torch.device
-                         ) -> torch.Tensor:
-    """Uniform in [0, 2^bits): random limbs + mask (q is a power of two)."""
-    raw = rng.integers(0, 1 << 32, size=(N, n_limbs), dtype=np.uint64)
-    arr = torch.from_numpy(raw.astype(np.uint32).view(np.int32)).to(device)
-    return bigint.mask_bits(arr, bits)
+                         n_limbs: int, device: torch.device,
+                         beta_bits: int = 32) -> torch.Tensor:
+    """Uniform in [0, 2^bits): random limbs + mask (q is a power of two).
+
+    A 64-bit limb is 62 random bits shifted up by 2 and 2 more random
+    bits below, the reference's two draws in its order."""
+    if beta_bits == 32:
+        raw = rng.integers(0, 1 << 32, size=(N, n_limbs), dtype=np.uint64)
+        arr = torch.from_numpy(raw.astype(np.uint32).view(np.int32))
+    else:
+        raw = (rng.integers(0, 1 << 62, size=(N, n_limbs), dtype=np.uint64)
+               << np.uint64(2)) | rng.integers(
+                   0, 4, size=(N, n_limbs), dtype=np.uint64)
+        arr = torch.from_numpy(raw.view(np.int64))
+    return bigint.mask_bits(arr.to(device), bits)
 
 
 def _shoup(vals: torch.Tensor, primes: torch.Tensor) -> torch.Tensor:
-    """floor(vals·β / p) for (np, N) residues; exact in int64."""
-    return narrow(torch.div(wide(vals) << 32, wide(primes)[:, None],
-                            rounding_mode="floor"))
+    """floor(vals·β / p) for (np, N) residues of either β; exact."""
+    bits = word_bits(vals)
+    return narrow(shoup_companion(wide(vals), wide(primes), bits), bits)
 
 
 def keygen(params: HEParams, seed: int = 0, cfg: PipelineConfig = DEFAULT,
@@ -75,24 +86,25 @@ def keygen(params: HEParams, seed: int = 0, cfg: PipelineConfig = DEFAULT,
     g = device_tables(params, dev)
     N = params.N
     logQ = params.logQ
+    beta = params.beta_bits
     qlimbs = params.qlimbs(logQ)
     q2limbs = params.limbs_for_bits(2 * logQ)
 
     s = torch.from_numpy(sample_hwt(rng, N, params.h)).to(dev)
 
     # ---- public key over Q -------------------------------------------------
-    pk_ax = sample_uniform_limbs(rng, N, logQ, qlimbs, dev)
+    pk_ax = sample_uniform_limbs(rng, N, logQ, qlimbs, dev, beta)
     np_pk = params.np_for_bits(params.primes, logQ + params.logN + 3)
     as_prod = rns.from_eval(
         rns.eval_mul(rns.to_eval(pk_ax, np_pk, g, cfg),
                      rns.to_eval_small(s, np_pk, g, cfg), g, cfg),
         params, qlimbs, g, cfg)                      # centered a·s
     e = rns.small_ints_to_limbs(sample_gauss(rng, N, params.sigma),
-                                qlimbs, dev)
+                                qlimbs, dev, beta)
     pk_bx = bigint.mask_bits(bigint.add(bigint.neg(as_prod), e), logQ)
 
     # ---- evaluation key over Q² --------------------------------------------
-    evk_ax = sample_uniform_limbs(rng, N, 2 * logQ, q2limbs, dev)
+    evk_ax = sample_uniform_limbs(rng, N, 2 * logQ, q2limbs, dev, beta)
     np_evk = params.np_for_bits(params.primes, 2 * logQ + params.logN + 3)
     as2 = rns.from_eval(
         rns.eval_mul(rns.to_eval(evk_ax, np_evk, g, cfg),
@@ -106,7 +118,7 @@ def keygen(params: HEParams, seed: int = 0, cfg: PipelineConfig = DEFAULT,
         params, q2limbs, g, cfg)
     q_ss = bigint.shift_left_bits(ss, logQ)          # Q·s²
     e2 = rns.small_ints_to_limbs(sample_gauss(rng, N, params.sigma),
-                                 q2limbs, dev)
+                                 q2limbs, dev, beta)
     evk_bx = bigint.mask_bits(
         bigint.add(bigint.add(bigint.neg(as2), e2), q_ss), 2 * logQ)
 

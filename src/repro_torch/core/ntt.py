@@ -8,23 +8,28 @@ modified Shoup (3 half-word multiplies, §V-B). Both are exact, so the
 flag changes the arithmetic, never the result.
 
 These are the plain versions of the NTT kernels
-(:mod:`repro_torch.kernels.ntt`): int32 words in and out, int64 inside.
-Data layout is (np, N) with N minor.
+(:mod:`repro_torch.kernels.ntt`): stored words in and out, int32 at
+β = 2^32 and int64 at β = 2^64 (the kernels take β = 2^32 only), int64
+inside. Data layout is (np, N) with N minor.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
 from repro_torch.core.wordops import (
     modadd, modsub, narrow, shoup_modmul, shoup_modmul_modified, wide,
+    word_bits,
 )
 
 __all__ = ["ntt", "intt", "pointwise_shoup_scale"]
 
 
-def _modmul(modified: bool):
-    return shoup_modmul_modified if modified else shoup_modmul
+def _modmul(modified: bool, bits: int):
+    return partial(shoup_modmul_modified if modified else shoup_modmul,
+                   bits=bits)
 
 
 def ntt(x: torch.Tensor, psi_rev: torch.Tensor, psi_rev_shoup: torch.Tensor,
@@ -36,7 +41,8 @@ def ntt(x: torch.Tensor, psi_rev: torch.Tensor, psi_rev_shoup: torch.Tensor,
     primes: (np,).
     """
     *lead, N = x.shape
-    mm = _modmul(modified)
+    bits = word_bits(x)
+    mm = _modmul(modified, bits)
     v, psi, psi_sh = wide(x), wide(psi_rev), wide(psi_rev_shoup)
     p = wide(primes)[:, None, None]
     t, m = N, 1
@@ -50,7 +56,7 @@ def ntt(x: torch.Tensor, psi_rev: torch.Tensor, psi_rev_shoup: torch.Tensor,
         v = torch.stack([modadd(u, vv, p), modsub(u, vv, p)],
                         dim=-2).reshape(*lead, N)
         m *= 2
-    return narrow(v)
+    return narrow(v, bits)
 
 
 def intt(x: torch.Tensor, ipsi_rev: torch.Tensor,
@@ -63,7 +69,8 @@ def intt(x: torch.Tensor, ipsi_rev: torch.Tensor,
     shape.
     """
     *lead, N = x.shape
-    mm = _modmul(modified)
+    bits = word_bits(x)
+    mm = _modmul(modified, bits)
     v, ipsi, ipsi_sh = wide(x), wide(ipsi_rev), wide(ipsi_rev_shoup)
     p = wide(primes)[:, None, None]
     t, m = 1, N
@@ -78,7 +85,7 @@ def intt(x: torch.Tensor, ipsi_rev: torch.Tensor,
         m = h
     # final elementwise ·N⁻¹ (paper §IV: iNTT's extra division by N)
     return narrow(mm(v, wide(n_inv)[:, None], wide(n_inv_shoup)[:, None],
-                     p[:, :, 0]))
+                     p[:, :, 0]), bits)
 
 
 def pointwise_shoup_scale(x: torch.Tensor, y: torch.Tensor,
@@ -89,5 +96,6 @@ def pointwise_shoup_scale(x: torch.Tensor, y: torch.Tensor,
     Used for evk products (evk is precomputed in the eval domain, so its
     Shoup companions are too).
     """
-    return narrow(_modmul(modified)(wide(x), wide(y), wide(y_shoup),
-                                    wide(primes)[:, None]))
+    bits = word_bits(x)
+    return narrow(_modmul(modified, bits)(wide(x), wide(y), wide(y_shoup),
+                                          wide(primes)[:, None]), bits)

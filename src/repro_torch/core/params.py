@@ -2,10 +2,11 @@
 
 Two word-size modes, mirroring the paper's §V:
   - ``beta_bits=64``: the paper's CPU (AVX-512) configuration — qLimbs=19,
-    primes in (2^57, 2^60), np≈42/63 at log Q = 1200.
+    primes in (2^57, 2^60), np 41/61 at log Q = 1200. ``repro_torch`` runs
+    it on its plain torch path (int64 words), as the reference runs it in
+    jnp; the CUDA kernels refuse it.
   - ``beta_bits=32``: the paper's GPU configuration — qLimbs=38, primes in
-    (2^27, 2^30), np 81/122. It is the only word size ``repro_torch`` runs
-    so far; the tables refuse ``beta_bits=64``.
+    (2^27, 2^30), np 81/122; the CUDA kernels' word size.
 
 q is a power of two (q = 2^logq, faithful to HEAAN), so mod-q is limb
 masking and rescaling is a bit shift. All modular heavy lifting happens on

@@ -95,15 +95,16 @@ def _galois_key(params: HEParams, sk: SecretKey, k: int, seed: int,
     s_rot = np.zeros_like(s)
     s_rot[dest] = np.where(neg, -s.astype(np.int64), s.astype(np.int64))
 
-    ax = sample_uniform_limbs(rng, N, 2 * logQ, q2limbs, device)
+    beta = params.beta_bits
+    ax = sample_uniform_limbs(rng, N, 2 * logQ, q2limbs, device, beta)
     np_kk = params.np_for_bits(params.primes, 2 * logQ + params.logN + 3)
     as_prod = rns.from_eval(
         rns.eval_mul(rns.to_eval(ax, np_kk, g, cfg),
                      rns.to_eval_small(sk.s.to(device), np_kk, g, cfg),
                      g, cfg), params, q2limbs, g, cfg)
     e = rns.small_ints_to_limbs(sample_gauss(rng, N, params.sigma),
-                                q2limbs, device)
-    srot_limbs = rns.small_ints_to_limbs(s_rot, q2limbs, device)
+                                q2limbs, device, beta)
+    srot_limbs = rns.small_ints_to_limbs(s_rot, q2limbs, device, beta)
     q_srot = bigint.shift_left_bits(srot_limbs, logQ)
     bx = bigint.mask_bits(
         bigint.add(bigint.add(bigint.neg(as_prod), e), q_srot), 2 * logQ)

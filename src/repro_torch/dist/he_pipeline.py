@@ -51,6 +51,11 @@ Differences from the reference:
     batch into the coefficient axis. The products are the same.
   - Plain paths: ``vmap`` becomes a batch dimension (NTT, iNTT, the
     pointwise products) or a Python loop over B (iCRT).
+  - :attr:`HEStatic.dtype` is the torch type of a stored word
+    (``torch.int32`` at β = 2^32, ``torch.int64`` at β = 2^64) where the
+    reference's is ``np.uint32``/``np.uint64``. At β = 2^64 the step runs
+    the plain path; ``use_kernels=True`` raises, as the reference's
+    assert does.
 """
 
 from __future__ import annotations
@@ -67,7 +72,10 @@ from repro_torch.core.context import HEContext, resolve_device
 from repro_torch.core.crt import crt, icrt
 from repro_torch.core.ntt import intt, ntt, pointwise_shoup_scale
 from repro_torch.core.params import HEParams
-from repro_torch.core.wordops import modadd, modsub, mont_modmul, narrow, wide
+from repro_torch.core.rns import kernels_on
+from repro_torch.core.wordops import (
+    modadd, modsub, mont_modmul, narrow, wide, word_bits,
+)
 from repro_torch.kernels.crt.ops import crt_op
 from repro_torch.kernels.icrt.ops import icrt_op
 from repro_torch.kernels.modmul.ops import pointwise_mont_op
@@ -110,6 +118,11 @@ class HEStatic:
     @property
     def N(self) -> int:
         return self.params.N
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The stored word: int32 bit patterns at β = 2^32, int64 at 2^64."""
+        return torch.int32 if self.params.beta_bits == 32 else torch.int64
 
 
 def he_static(params: HEParams, logq: int) -> HEStatic:
@@ -250,8 +263,10 @@ def _mont_mul_b(a: torch.Tensor, b: torch.Tensor, t: Dict,
         return pointwise_mont_op(
             a.reshape(B * npn, N), b.reshape(B * npn, N),
             *[c.repeat(B) for c in consts]).reshape(B, npn, N)
+    bits = word_bits(a)
     return narrow(mont_modmul(wide(a), wide(b),
-                              *[wide(c)[:, None] for c in consts]))
+                              *[wide(c)[:, None] for c in consts], bits),
+                  bits)
 
 
 # --------------------------------------------------------------------------
@@ -329,13 +344,14 @@ def _region(sf: StageFns, name: str):
 
 def check_operands(st: HEStatic, device: torch.device,
                    *xs: torch.Tensor) -> None:
-    """Refuse a step's operands unless each is (B, N, qlimbs) on
-    `device`."""
+    """Refuse a step's operands unless each is (B, N, qlimbs) of
+    ``st.dtype`` on `device`."""
     for x in xs:
-        if x.device != device or x.shape[1:] != (st.N, st.qlimbs):
+        if (x.device != device or x.shape[1:] != (st.N, st.qlimbs)
+                or x.dtype != st.dtype):
             raise ValueError(
-                f"operands must be (B, {st.N}, {st.qlimbs}) on {device}; "
-                f"got {tuple(x.shape)} on {x.device}")
+                f"operands must be (B, {st.N}, {st.qlimbs}) {st.dtype} on "
+                f"{device}; got {tuple(x.shape)} {x.dtype} on {x.device}")
 
 
 def make_keyswitch_step(st: HEStatic, sf: StageFns):
@@ -376,10 +392,13 @@ def make_he_mul_step(st: HEStatic, device: str | torch.device = "cuda", *,
     Operands are contiguous (B, N, qlimbs) limb batches on `device`;
     outputs likewise. The strategy knobs select the paper's optimization
     ladder per stage; `use_kernels` routes every stage through the CUDA
-    kernels, keeping the bitwise contract; `stage_timer` books each stage
-    and both regions into a StageTimer (same words).
+    kernels, keeping the bitwise contract (β = 2^32 only: at β = 2^64 it
+    raises ValueError); `stage_timer` books each stage and both regions
+    into a StageTimer (same words).
     """
+    kernels_on(use_kernels, st.params)
     logq, qlimbs = st.logq, st.qlimbs
+    bits = st.params.beta_bits
     sf = make_stage_fns(device, crt_strategy=crt_strategy,
                         icrt_strategy=icrt_strategy,
                         modified_shoup=modified_shoup,
@@ -398,10 +417,11 @@ def make_he_mul_step(st: HEStatic, device: str | torch.device = "cuda", *,
 
             d0_ev = sf.mont_mul(eb1, eb2, t1)
             d2_ev = sf.mont_mul(ea1, ea2, t1)
-            d1_ev = sf.mont_mul(narrow(modadd(wide(ea1), wide(eb1), p1)),
-                                narrow(modadd(wide(ea2), wide(eb2), p1)), t1)
+            d1_ev = sf.mont_mul(
+                narrow(modadd(wide(ea1), wide(eb1), p1), bits),
+                narrow(modadd(wide(ea2), wide(eb2), p1), bits), t1)
             d1_ev = narrow(modsub(modsub(wide(d1_ev), wide(d0_ev), p1),
-                                  wide(d2_ev), p1))
+                                  wide(d2_ev), p1), bits)
 
             d0 = sf.from_eval(d0_ev, t1, qlimbs)
             d1 = sf.from_eval(d1_ev, t1, qlimbs)

@@ -200,6 +200,18 @@ class TableCache:
     def has_plain(self, h: str, logq: int) -> bool:
         return self.plain.has(h, logq)
 
+    @property
+    def plain_hits(self) -> int:
+        return self.plain.hits
+
+    @property
+    def plain_misses(self) -> int:
+        return self.plain.misses
+
+    @property
+    def plain_evictions(self) -> int:
+        return self.plain.evictions
+
     # ---- keys ------------------------------------------------------------
 
     def evk(self) -> Dict[str, torch.Tensor]:
@@ -257,9 +269,9 @@ class TableCache:
             "hits": self.hits,
             "misses": self.misses,
             "plain_entries": len(self.plain),
-            "plain_hits": self.plain.hits,
-            "plain_misses": self.plain.misses,
-            "plain_evictions": self.plain.evictions,
+            "plain_hits": self.plain_hits,
+            "plain_misses": self.plain_misses,
+            "plain_evictions": self.plain_evictions,
             "resident_mib": round(res_b / 2**20, 3),
             "icrt_mib": round(icrt_b / 2**20, 3),
             "keys_mib": round(key_b / 2**20, 3),

@@ -28,7 +28,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["LAUNCHES", "SMEM_LIMIT", "reset_launches", "build", "library",
-           "plain", "check", "launch", "padded"]
+           "plain", "words32", "check", "launch", "padded"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
@@ -132,6 +132,16 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         _lib = bind(ctypes.CDLL(str(build())))
     return _lib
+
+
+def words32(t: torch.Tensor) -> None:
+    """Refuse words other than β = 2^32 (int32 bit patterns) on any device:
+    the kernels, like the reference's Pallas kernels, take 32-bit words."""
+    if t.dtype != torch.int32:
+        raise ValueError(
+            f"the CUDA kernels take β = 2^32 words (torch.int32); got "
+            f"{t.dtype}. β = 2^64 runs the plain path: "
+            f"PipelineConfig(use_kernels=False)")
 
 
 def plain(t: torch.Tensor) -> bool:

@@ -65,6 +65,7 @@ def crt_op(x, tb, tb_shoup, primes, *, strategy: str = "acc3"):
     it) runs zero-padded to a multiple of BLOCK."""
     if strategy not in _STRATEGIES:
         raise ValueError(f"unknown kernel CRT strategy {strategy!r}")
+    common.words32(x)
     if common.plain(x):
         return crt_ref(x, tb, tb_shoup, primes, strategy=strategy)
     every, counter = _STRATEGIES[strategy]

@@ -70,6 +70,7 @@ def icrt_op(r, t: dict, out_limbs: int):
     (a region table has them) on r's device. Any N: one the launch cannot
     tile (above one block, not a multiple of it) runs zero-padded to a
     multiple of BLOCK."""
+    common.words32(r)
     if common.plain(r):
         return icrt_ref(r, t, out_limbs)
     npn, N = r.shape

@@ -13,6 +13,7 @@ __all__ = ["pointwise_mont_op"]
 def pointwise_mont_op(a, b, primes, pprime, r2):
     """(np, N) a⊙b mod p; inputs in [0, p). CPU tensors run the plain
     version, CUDA tensors the kernel."""
+    common.words32(a)
     if common.plain(a):
         return pointwise_mont_ref(a, b, primes, pprime, r2)
     npn, N = a.shape

@@ -87,6 +87,7 @@ def _log2(N: int) -> int:
 
 def ntt_op(x, psi_rev, psi_rev_shoup, primes, *, modified: bool = False):
     """Forward negacyclic NTT: (rows, N) residues -> bit-reversed eval."""
+    common.words32(x)
     if common.plain(x):
         return ntt_ref(x, psi_rev, psi_rev_shoup, primes, modified=modified)
     npn, N = psi_rev.shape
@@ -105,6 +106,7 @@ def ntt_op(x, psi_rev, psi_rev_shoup, primes, *, modified: bool = False):
 def intt_op(x, ipsi_rev, ipsi_rev_shoup, n_inv, n_inv_shoup, primes, *,
             modified: bool = False):
     """Inverse negacyclic NTT: bit-reversed eval -> (rows, N) residues."""
+    common.words32(x)
     if common.plain(x):
         return intt_ref(x, ipsi_rev, ipsi_rev_shoup, n_inv, n_inv_shoup,
                         primes, modified=modified)

@@ -772,3 +772,30 @@ def test_cuda_kernels_at_bootstrap_shapes(dev, logN):
     assert all(common.LAUNCHES[k] > 0 for k in (
         "crt", "ntt", "intt", "icrt", "modmul", "crt_mod2", "crt_mod4",
         "ntt_modified", "intt_modified"))
+
+
+def test_cuda_beta64_he_mul_equals_cpu(dev):
+    """At β = 2^64 the card runs the plain path (the kernels take 32-bit
+    words): keygen, two encryptions, he_mul and rescale at logN 5 give
+    the CPU's words bit for bit, and launch no port kernel."""
+    params = small_params(logN=5, beta_bits=64)
+    plain = PipelineConfig(use_kernels=False)
+    rng = np.random.default_rng(64)
+    z = [rng.normal(size=8) + 1j * rng.normal(size=8) for _ in range(2)]
+    out = {}
+    for where in ("cpu", dev):
+        common.reset_launches()
+        sk, pk, evk = keygen(params, seed=5, cfg=plain, device=where)
+        c1, c2 = (H.encrypt_message(zz, pk, params, seed=30 + i, cfg=plain)
+                  for i, zz in enumerate(z))
+        out[str(where)] = H.rescale(H.he_mul(c1, c2, evk, params, plain),
+                                    params)
+        assert sum(common.LAUNCHES.values()) == 0
+    cpu, card = out["cpu"], out[str(dev)]
+    assert card.ax.dtype == torch.int64 and card.ax.is_cuda
+    assert torch.equal(cpu.ax, card.ax.cpu())
+    assert torch.equal(cpu.bx, card.bx.cpu())
+    got = H.decrypt_message(card, sk, params, plain)
+    assert np.abs(got - z[0] * z[1]).max() < 1e-3
+    with pytest.raises(ValueError, match="use_kernels=False"):
+        H.he_mul(c1, c2, evk, params)
