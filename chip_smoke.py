@@ -149,6 +149,34 @@ Phases; any failure exits non-zero and prints no result:
    CPU's bit for bit, and sampled coefficients of region 1's bx1·bx2 at
    paper params equal the python-int negacyclic product. 10e:
    ``use_kernels=True`` is refused by he_mul and by the step.
+11. The HE pipeline across ranks (``repro_torch.dist``): GRID_RANKS ranks
+   of a model grid on this one card (``launch.mesh.spawn_grid``; gloo, as
+   NCCL refuses two ranks on one GPU), at ``paper_params()`` uncut,
+   batch BATCH. This is not a scaling measurement: the ranks share the
+   card's SMs and gloo moves CUDA tensors through the host. 11a: iCRT
+   split at the cross-prime sum, ``icrt_partial`` and ``icrt_finish``
+   (``csrc/icrt.cu``), against their plain twins bit for bit (lo, hi and
+   the f64 qsum) at the shards of np₁ and np₂ into ICRT_SPLITS ranks
+   (41/40, 61/61, 21/20/20/20, 31/31/30/30), one prime, and an empty shard
+   (which launches nothing), B = 1 and BATCH, on random residues and on
+   iCRT's edge inputs; the partials of each split summed and finished ==
+   the fused ``icrt_op`` bit for bit; both timed (CUDA events, median of
+   20, L2 flushed) against their bounds. 11b: ``make_he_mul_step`` on the
+   2-rank grid, tables and keys from each rank's ``TableCache(grid=)``,
+   on the rungs of GRID_RUNGS at logQ and the default rung one level
+   down: every output == the one-rank kernel step's bit for bit; the
+   schedule each rank records == ``he_expected_collectives`` (counts and
+   ring wire bytes), with no collective-permute; the launch counts set to
+   0 before and read after (the split kernels must launch); on rank 0 the
+   step's wall (median of 5), the collectives' share of it (gloo takes the
+   CUDA tensors, so the port stages nothing), device ms from one profiled
+   call, and each
+   rank's resident table bytes beside one rank's. 11c: phase 7's stream
+   through ``HEServer(grid=)`` on rank 0 with ``serve_follower`` on rank
+   1 (the machinery of ``serve_he --model-shards``): every result ==
+   phase 7's HEServer result bit for bit, the drain wall beside phase
+   7's first; then ``serve_he(model_shards=2)`` at SMOKE, its max_err ==
+   phase 7's SMOKE run's.
 
 Before the last line it prints the nvidia-smi line, one JSON line of
 per-kernel numbers (``{"kernels": [...]}``: the headline times are those
@@ -158,7 +186,8 @@ lines for HE Mul's times, the batched step's and their traces;
 the circuit path's JSON line, the serving JSON line
 (``{"serving": {...}}``), the multi-host JSON line (``{"multihost":
 {...}}``), the bootstrap JSON line (``{"bootstrap": {...}}``), the
-β = 2^64 JSON line (``{"beta64": {...}}``) and the nvidia-smi line again; the last line
+β = 2^64 JSON line (``{"beta64": {...}}``), the grid JSON line
+(``{"grid": {...}}``) and the nvidia-smi line again; the last line
 is ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -244,6 +273,16 @@ BOOT_USABLE = 2.0 ** -6
 BETA64_BATCH = 4
 BETA64_CPU_LOGN = 12
 BETA64_SAMPLES = 8
+# Phase 11, the HE pipeline across ranks: the model ranks sharing the
+# card, the rungs of the 2-rank step (make_he_mul_step keywords), and the
+# splits of iCRT's primes over ranks that 11a holds the split kernels at
+GRID_RANKS = 2
+GRID_RUNGS = {
+    "default": {},
+    "mod2+modified": {"crt_strategy": "mod2", "modified_shoup": True},
+    "reduce_scatter_icrt": {"reduce_scatter_icrt": True},
+}
+ICRT_SPLITS = (2, 4)
 SOURCES = {
     "modmul": ("kernels/csrc/modmul.cu",
                "src/repro/kernels/modmul/modmul.py:33"),
@@ -257,6 +296,10 @@ SOURCES = {
                      "src/repro/kernels/ntt/ntt.py:32"),
     "intt_modified": ("kernels/csrc/ntt.cu",
                       "src/repro/kernels/ntt/ntt.py:54"),
+    "icrt_partial": ("kernels/csrc/icrt.cu",
+                     "src/repro/kernels/icrt/icrt.py:98"),
+    "icrt_finish": ("kernels/csrc/icrt.cu",
+                    "src/repro/kernels/icrt/icrt.py:98"),
 }
 
 
@@ -798,7 +841,8 @@ def drive_batched_step(torch, np, params, dev, common, pk, evk) -> dict:
     path_s = time.perf_counter() - t0
     launches = dict(common.LAUNCHES)
 
-    require(all(v > 0 for v in launches.values()),
+    require(all(launches[k] > 0 for _, want in RUNGS.values()
+                for k in want),
             f"a kernel never launched in the batched step: {launches}")
     for name, (_, want) in RUNGS.items():
         require(rung_launches[name] == want,
@@ -1085,6 +1129,13 @@ def same_ct(x, y) -> bool:
                                                      y.bx)
 
 
+def sync(torch, dev) -> None:
+    """Wait for the card (nothing to wait for on the CPU, where phase 11's
+    ranks rehearse)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def serve_stream(torch, server, reqs, circs) -> tuple:
     """Phase 7's stream on `server` (an HEServer or an HEFrontend): the
     requests, the first circuit, one flush (the two degree-4 circuits run
@@ -1098,14 +1149,14 @@ def serve_stream(torch, server, reqs, circs) -> tuple:
              for _, meth, args, kw, _, _ in reqs]
     cins = [([dataclasses.replace(o, pt=moved(o.pt, dev)) for o in ops],
              moved(x, dev)) for _, ops, x, _, _ in circs]
-    torch.cuda.synchronize()
+    sync(torch, dev)
     t0 = time.perf_counter()
     rids = [f(*a, **kw) for f, a, kw in calls]
     cids = [server.submit_circuit(cins[0][0], {"x": cins[0][1]})]
     res = dict(server.poll(flush=True))
     cids += [server.submit_circuit(ops, {"x": x}) for ops, x in cins[1:]]
     res.update(server.drain())
-    torch.cuda.synchronize()
+    sync(torch, dev)
     wall = time.perf_counter() - t0
     require(not server.queue.depth and not server._work_pending()
             and not server._circuits, "a request was left queued")
@@ -2139,6 +2190,411 @@ def drive_beta64_path(torch, np, dev, common, mul32, galois32=None
         "product_coeffs": coeffs, "phase_s": phase_s}
 
 
+def icrt_split_inputs(np, primes: list, npn: int, n: int, rng) -> dict:
+    """The residues 11a holds the split iCRT at: random, and iCRT's edge
+    inputs (every residue p_j − 1, every residue 0, and X = ⌊P/2⌋,
+    ⌊P/2⌋ + 1, P − 1, 1 in turn along the coefficients: X/P within 1/P of
+    an integer, where the f64 quotient is decided by the ±1 ladder)."""
+    P = 1
+    for p in primes[:npn]:
+        P *= p
+    xs = (P // 2, P // 2 + 1, P - 1, 1)
+    ps = np.array(primes[:npn], np.uint64)[:, None]
+    cols = {"random": rng.integers(0, 1 << 62, size=(npn, n),
+                                   dtype=np.uint64) % ps,
+            "p-1": ps - 1, "zero": np.zeros((npn, 1), np.uint64),
+            "P/2,P/2+1,P-1,1": np.array([[x % p for x in xs]
+                                         for p in primes[:npn]], np.uint64)}
+    return {k: np.ascontiguousarray(np.tile(v, (1, n // v.shape[1])))
+            for k, v in cols.items()}
+
+
+def check_split_icrt(torch, np, params, dev, flush) -> dict:
+    """Phase 11a (see the module docstring). Returns kernel -> rows (the
+    timed shapes) and the count of bitwise checks."""
+    from repro_torch.core.context import device_icrt_tables, device_tables
+    from repro_torch.dist.sharding import prime_rows
+    from repro_torch.kernels import common
+    from repro_torch.kernels.icrt.ops import (
+        icrt_finish_op, icrt_op, icrt_partial_op,
+    )
+    from repro_torch.kernels.icrt.ref import (
+        icrt_finish_ref, icrt_inputs, icrt_partial_ref,
+    )
+
+    g = device_tables(params, dev)
+    N = params.N
+    K, np1, np2, ks_limbs = level_shapes(params, params.logQ)
+    primes = [int(v) for v in g.primes.cpu().numpy().view(np.uint32)]
+    rng = np.random.default_rng(2027)
+    rows: dict = {"icrt_partial": [], "icrt_finish": []}
+    checks = 0
+
+    def same(a, b):
+        return all(x.shape == y.shape and torch.equal(x, y)
+                   for x, y in zip(a, b))
+
+    def shard(t, s):
+        return {k: (v[s].clone() if k not in ("P_limbs", "P_half_limbs")
+                    else v) for k, v in t.items()}
+
+    def timed(name, label, kern, plain, nbytes, nmul):
+        b_ms, b_by = bound_ms(nbytes, nmul)
+        row = {"shape": label, "ms": time_ms(torch, kern, 20, flush),
+               "plain_ms": time_ms(torch, plain, 3, flush),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "int32_muls": nmul, "max_abs_err": 0}
+        rows[name].append(row)
+        print(f"kernel {name:13s} {label:24s} bitwise ok  {row['ms']:.4f} ms"
+              f"  plain {row['plain_ms']:.3f} ms  bound {b_ms:.4f} ms "
+              f"({b_by})", flush=True)
+
+    for npn, out_limbs in ((np1, K), (np2, ks_limbs)):
+        t = icrt_inputs(device_icrt_tables(params, npn, dev), g)
+        PL = t["pdivp"].shape[1]
+        for B in (1, BATCH):
+            n = B * N
+            for label, res in icrt_split_inputs(np, primes, npn, n,
+                                                rng).items():
+                r = torch.from_numpy(res.astype(np.uint32).view(np.int32)
+                                     ).to(dev)
+                whole = icrt_op(r, t, out_limbs)
+                for s in (slice(0, 1), slice(0, 0)):
+                    before = dict(common.LAUNCHES)
+                    got = icrt_partial_op(r[s], shard(t, s))
+                    want = icrt_partial_ref(r[s], shard(t, s))
+                    torch.cuda.synchronize()
+                    require(same(got, want), f"icrt_partial np={s.stop} "
+                            f"B={B} {label}: differs from its twin")
+                    require(s.stop or common.LAUNCHES == before,
+                            "an empty shard launched a kernel")
+                    checks += 1
+                for gsz in ICRT_SPLITS:
+                    parts = []
+                    for rk in range(gsz):
+                        s = prime_rows(npn, gsz, rk)
+                        got = icrt_partial_op(r[s], shard(t, s))
+                        want = icrt_partial_ref(r[s], shard(t, s))
+                        torch.cuda.synchronize()
+                        require(same(got, want), f"icrt_partial "
+                                f"np={s.stop - s.start} B={B} {label}: "
+                                f"differs from its twin")
+                        parts.append(got)
+                        checks += 1
+                    summed = [sum(p[i] for p in parts) for i in range(3)]
+                    got = icrt_finish_op(*summed, t, out_limbs)
+                    want = icrt_finish_ref(*summed, t, out_limbs)
+                    torch.cuda.synchronize()
+                    require(same([got], [want]), f"icrt_finish np={npn} "
+                            f"split {gsz} B={B} {label}: differs from its "
+                            f"twin")
+                    require(same([got], [whole]), f"iCRT split over {gsz} "
+                            f"at np={npn} B={B} {label}: differs from the "
+                            f"fused icrt_op")
+                    checks += 2
+            print(f"icrt split np={npn} out={out_limbs} B={B}: partial and "
+                  f"finish == twins (np 1 and empty shards too), splits "
+                  f"{ICRT_SPLITS} == fused icrt_op on random and edge "
+                  f"inputs", flush=True)
+            # timed at the 2-rank grid's shard (the larger) and the finish
+            s = prime_rows(npn, GRID_RANKS, 0)
+            ns = s.stop - s.start
+            r = torch.from_numpy(icrt_split_inputs(np, primes, npn, n, rng)[
+                "random"].astype(np.uint32).view(np.int32)).to(dev)
+            ts = shard(t, s)
+            lo, hi, qsum = icrt_partial_op(r[s], ts)
+            tag = f" B={B}" if B > 1 else ""
+            timed("icrt_partial", f"np={ns} of {npn}{tag}",
+                  lambda r=r[s], ts=ts: icrt_partial_op(r, ts),
+                  lambda r=r[s], ts=ts: icrt_partial_ref(r, ts),
+                  4 * ns * n + 16 * n * PL + 8 * n, n * ns * (PL + 3))
+            timed("icrt_finish", f"np={npn} out={out_limbs}{tag}",
+                  lambda a=(lo, hi, qsum), o=out_limbs: icrt_finish_op(
+                      *a, t, o),
+                  lambda a=(lo, hi, qsum), o=out_limbs: icrt_finish_ref(
+                      *a, t, o),
+                  (16 * PL + 8 + 4 * out_limbs) * n, 0)
+    return {"rows": rows, "checks": checks}
+
+
+def grid_step_rank(grid, params, evk, operands, refs) -> dict:
+    """Phase 11b in one rank of the grid: the 2-rank step on each rung
+    (see the module docstring). Every rank runs the same calls."""
+    import torch
+    from repro_torch.dist import comm
+    from repro_torch.dist import he_pipeline as hp
+    from repro_torch.dist.sharding import he_expected_collectives
+    from repro_torch.hserve.tables import TableCache
+    from repro_torch.kernels import common
+
+    dev = grid.device
+    t0 = time.perf_counter()
+    cache = TableCache(params, evk, device=dev, grid=grid)
+    out = {"rank": grid.rank, "tables_s": time.perf_counter() - t0,
+           "cases": []}
+    launches: dict = {}
+    for (logq, rung), want in refs.items():
+        t1, t2 = cache.level_tables(logq)
+        st = hp.he_static(params, logq)
+        xs = [x.to(dev) for x in operands[logq]]
+        step = hp.make_he_mul_step(st, dev, grid=grid, use_kernels=True,
+                                   **GRID_RUNGS[rung])
+
+        def run(step=step, t1=t1, t2=t2, xs=xs):
+            return step(t1, t2, cache.evk(), *xs)
+
+        sync(torch, dev)
+        comm.reset(grid)
+        common.reset_launches()
+        got = run()
+        sync(torch, dev)
+        counts = {k: v for k, v in common.LAUNCHES.items() if v}
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        sched = comm.summary(grid, "step")
+        exp = he_expected_collectives("mul", grid, params, logq,
+                                      batch=xs[0].shape[0])
+        case = {"logq": logq, "rung": rung, "launches": counts,
+                "bitwise": all(torch.equal(a.cpu(), b)
+                               for a, b in zip(got, want)),
+                "schedule": sched, "expected": {
+                    "counts": exp["counts"],
+                    "wire_bytes": exp["wire_bytes"]}}
+        if (logq, rung) == (params.logQ, "default"):
+            ms = []
+            comm.reset(grid)
+            for _ in range(5):
+                sync(torch, dev)
+                t0 = time.perf_counter()
+                run()
+                sync(torch, dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            timed = comm.summary(grid, "step")
+            case.update(ms_per_step=statistics.median(ms), ms=ms,
+                        collective_s=timed["seconds"],
+                        collective_share=timed["seconds"] * 1e3 / sum(ms))
+            if dev.type == "cuda":
+                if grid.rank == 0:
+                    case["profile"] = {k: v for k, v in profile(
+                        torch, run).items() if k != "top"}
+                else:
+                    run()
+        out["cases"].append(case)
+    out["launches"] = launches
+    out["cache"] = cache.stats()
+    return out
+
+
+def grid_serve_rank(grid, params, keys, reqs, circs, want) -> dict:
+    """Phase 11c in one rank: rank 0 serves phase 7's stream through
+    HEServer(grid=) and holds every result against phase 7's; rank 1
+    follows."""
+    import torch
+    from repro_torch.hserve import HEServer, serve_follower
+    from repro_torch.kernels import common
+
+    if grid.model_rank:
+        return serve_follower(grid, params)
+    server = HEServer(params, keys["evk"], keys["rot_keys"],
+                      keys["conj_key"], device=grid.device,
+                      batch=SERVE_BATCH, schedule=True, grid=grid)
+    try:
+        common.reset_launches()
+        outs, wall = serve_stream(torch, server, reqs, circs)
+        launches = {k: v for k, v in common.LAUNCHES.items() if v}
+        same = [same_ct(a, b) for a, b in zip(outs, want)]
+        st = server.stats()
+    finally:
+        server.close()
+    return {"bitwise": same, "drain_s": wall, "launches": launches,
+            "grid": st["grid"], "cache": st["cache"],
+            "batches": {op: d["batches"] for op, d in st["per_op"].items()}}
+
+
+def drive_grid_path(torch, np, params, dev, common, flush, pk, evk, keys,
+                    stream, serving) -> dict:
+    """Phase 11 (see the module docstring)."""
+    phase_t0 = time.perf_counter()
+    out = drive_grid_step(torch, np, params, dev, flush, pk, evk)
+    served = drive_grid_serving(torch, params, dev, evk, keys, stream,
+                                serving)
+    out["launches"] = summed(out.pop("step_launches"),
+                             served.pop("launches"))
+    return {"phase_s": time.perf_counter() - phase_t0, **out, **served}
+
+
+def drive_grid_step(torch, np, params, dev, flush, pk, evk) -> dict:
+    """Phase 11a and 11b."""
+    from repro_torch.core import heaan as H
+    from repro_torch.core.cipher import EvalKey
+    from repro_torch.core.context import make_context
+    from repro_torch.dist import he_pipeline as hp
+    from repro_torch.hserve.tables import TableCache
+    from repro_torch.launch.mesh import spawn_grid
+
+    def on_host(key):
+        return EvalKey(*(getattr(key, f).cpu() for f in hp.EVK_TABLE_KEYS))
+
+    split = check_split_icrt(torch, np, params, dev, flush)
+
+    # ---- 11b: the step on the grid against the one-rank kernel step ------
+    lower = params.logQ - params.logp
+    cts = random_ciphertexts(torch, np, params, pk, dev,
+                             range(300, 300 + 2 * BATCH))
+    operands, refs = {}, {}
+    for logq in (params.logQ, lower):
+        cs = cts if logq == params.logQ else [
+            H.he_mod_down(c, params, logq) for c in cts]
+        xs = [torch.stack([getattr(c, f) for c in cs[s::2]])
+              for s, f in ((0, "ax"), (0, "bx"), (1, "ax"), (1, "bx"))]
+        operands[logq] = [x.cpu() for x in xs]
+        tabs = hp.runtime_tables(make_context(params, logq, dev), evk)
+        st = hp.he_static(params, logq)
+        for rung, kw in GRID_RUNGS.items():
+            if logq != params.logQ and rung != "default":
+                continue
+            one = {k: v for k, v in kw.items() if k != "reduce_scatter_icrt"}
+            refs[(logq, rung)] = [o.cpu() for o in hp.make_he_mul_step(
+                st, dev, use_kernels=True, **one)(*tabs, *xs)]
+    one_rank = TableCache(params, evk, device=dev)
+    for logq in (params.logQ, lower):
+        one_rank.level_tables(logq)
+    one_stats = one_rank.stats()
+    del one_rank
+    t0 = time.perf_counter()
+    ranks = spawn_grid(grid_step_rank, model=GRID_RANKS, device=dev.type,
+                       args=(params, on_host(evk), operands, refs))
+    step_s = time.perf_counter() - t0
+    launches: dict = {}
+    for res in ranks:
+        for case in res["cases"]:
+            what = f"rank {res['rank']} {case['rung']} at logq {case['logq']}"
+            require(case["bitwise"], f"2-rank step {what}: differs from "
+                    f"the one-rank kernel step")
+            sch, exp = case["schedule"], case["expected"]
+            # reduce_scatter_icrt moves lo and hi as a reduce-scatter and
+            # an all-gather each, qsum by an all-reduce: per reduction
+            n_red = exp["counts"]["all-reduce"] // 3
+            want = exp["counts"] if case["rung"] != "reduce_scatter_icrt" \
+                else {"all-reduce": n_red, "reduce-scatter": 2 * n_red,
+                      "all-gather": 2 * n_red}
+            require(sch["counts"] == want,
+                    f"2-rank step {what}: schedule {sch['counts']} against "
+                    f"{want} (he_expected_collectives {exp['counts']})")
+            require(case["rung"] == "reduce_scatter_icrt"
+                    or sch["total_bytes"] == exp["wire_bytes"],
+                    f"2-rank step {what}: {sch['total_bytes']} wire bytes "
+                    f"against {exp['wire_bytes']}")
+            require("collective-permute" not in sch["counts"],
+                    f"2-rank step {what}: a collective-permute")
+            # (a rehearsal on the CPU launches nothing)
+            require(dev.type != "cuda" or (
+                case["launches"].get("icrt_partial", 0) > 0
+                and case["launches"].get("icrt_finish", 0) > 0
+                and "icrt" not in case["launches"]),
+                    f"2-rank step {what}: launches {case['launches']}")
+        if res["rank"] == 0:
+            launches = res["launches"]
+    r0 = ranks[0]
+    card_res = {k: round(one_stats[k], 3) for k in
+                ("resident_mib", "icrt_mib", "keys_mib")}
+    for res in ranks:
+        c = res["cache"]
+        print(f"grid rank {res['rank']}: resident {c['resident_mib']:.1f} "
+              f"MiB, icrt {c['icrt_mib']:.2f} MiB, keys {c['keys_mib']:.1f} "
+              f"MiB (one rank: {card_res}); rows {c['stored_rows']}",
+              flush=True)
+    for case in r0["cases"]:
+        if "ms_per_step" in case:
+            print(f"grid step {case['rung']:20s} B={BATCH} on "
+                  f"{GRID_RANKS} ranks of one card: {case['ms_per_step']:.1f}"
+                  f" ms (median of 5), collectives "
+                  f"{case['collective_share']:.1%} of the wall; schedule "
+                  f"{case['schedule']['counts']} "
+                  f"{case['schedule']['total_bytes']:.0f} B == expected; "
+                  f"== one-rank kernel step", flush=True)
+    for prof in (c["profile"] for c in r0["cases"] if "profile" in c):
+        print(f"grid step default under torch.profiler on rank 0: "
+              f"{prof['device_ms']:.2f} ms of device time in "
+              f"{prof['device_events']} events, wall {prof['wall_ms']:.1f} "
+              f"ms", flush=True)
+
+    return {"ranks": GRID_RANKS, "split_icrt": split,
+            "step_launches": launches,
+            "step": {"cases": r0["cases"], "spawn_and_run_s": step_s,
+                     "tables_s": [r["tables_s"] for r in ranks],
+                     "resident": [r["cache"] for r in ranks],
+                     "one_rank_resident": card_res}}
+
+
+def drive_grid_serving(torch, params, dev, evk, keys, stream,
+                       serving) -> dict:
+    """Phase 11c: phase 7's stream across the ranks, and serve_he at
+    SMOKE with model_shards."""
+    import dataclasses
+    from repro_torch.core.cipher import EvalKey
+    from repro_torch.dist import he_pipeline as hp
+    from repro_torch.launch.mesh import spawn_grid
+    from repro_torch.launch.serve import serve_he
+
+    def on_host(key):
+        return EvalKey(*(getattr(key, f).cpu() for f in hp.EVK_TABLE_KEYS))
+
+    reqs, circs, outs, _ = stream
+    host = torch.device("cpu")
+    reqs_h = [(lb, m, [moved(a, host) for a in args],
+               {k: moved(v, host) for k, v in kw.items()}, None, None)
+              for lb, m, args, kw, _, _ in reqs]
+    circs_h = [(nm, [dataclasses.replace(o, pt=moved(o.pt, host))
+                     for o in ops], moved(x, host), None, None)
+               for nm, ops, x, _, _ in circs]
+    keys_h = {"evk": on_host(evk),
+              "rot_keys": {r: on_host(k) for r, k in keys[0].items()},
+              "conj_key": on_host(keys[1])}
+    want = [moved(o, host) for o in outs]
+    t0 = time.perf_counter()
+    served = spawn_grid(grid_serve_rank, model=GRID_RANKS, device=dev.type,
+                        args=(params, keys_h, reqs_h, circs_h, want))
+    serve_s = time.perf_counter() - t0
+    s0 = served[0]
+    require(all(s0["bitwise"]) and len(s0["bitwise"]) == len(outs),
+            f"served across ranks: results {s0['bitwise']} differ from "
+            f"phase 7's HEServer")
+    require(dev.type != "cuda" or s0["launches"].get("icrt_partial", 0),
+            f"served across ranks: launches {s0['launches']}")
+    print(f"grid serving: {len(outs)} results == phase 7's HEServer bit for "
+          f"bit; drain {s0['drain_s'] * 1e3:.1f} ms on {GRID_RANKS} ranks of "
+          f"one card (phase 7's first drain "
+          f"{serving['first_drain_s'] * 1e3:.1f} ms); rank 0 launches "
+          f"{s0['launches']}; follower ran "
+          f"{served[1]['steps']} steps", flush=True)
+    t0 = time.perf_counter()
+    smoke = serve_he(SERVE_BATCH, levels=3, rotations=2, conjugations=1,
+                     plain_frac=0.25, circuit=True, schedule=True,
+                     model_shards=GRID_RANKS, device=dev.type)
+    smoke_s = time.perf_counter() - t0
+    require(smoke["max_err"] == serving["serve_he_smoke"]["max_err"],
+            f"serve_he --model-shards {GRID_RANKS} decrypts "
+            f"{smoke['max_err']!r}, one rank {serving['serve_he_smoke']}")
+    print(f"serve_he --model-shards {GRID_RANKS} at SMOKE on "
+          f"{smoke['grid']['device']}: max_err {smoke['max_err']:.2e} == one "
+          f"rank's, in {smoke_s:.1f} s", flush=True)
+    return {"backend": s0["grid"]["backend"],
+            # rank 0's launches in 11c's drain (11b's join them)
+            "launches": s0["launches"],
+            "serving": {"drain_s": s0["drain_s"],
+                        "phase7_first_drain_s": serving["first_drain_s"],
+                        "spawn_and_run_s": serve_s,
+                        "launches": s0["launches"],
+                        "follower_steps": served[1]["steps"],
+                        "feed": s0["grid"]["feed"],
+                        "step": s0["grid"]["step"],
+                        "batches": s0["batches"]},
+            "serve_he_smoke": {"max_err": smoke["max_err"], "s": smoke_s,
+                               "grid": {k: smoke["grid"][k] for k in
+                                        ("data", "model", "backend")}}}
+
+
 def profile(torch, fn) -> dict:
     """Device time by kernel name over one call of fn, the busy share, and
     the device time of the port's kernels (in all and by kernel) against
@@ -2225,15 +2681,17 @@ def main() -> int:
                                  path["pk"], evk)
     serving = drive_serving_path(torch, np, params, dev, common, path["sk"],
                                  path["pk"], evk, *circuit["keys"])
+    stream = serving.pop("stream")
     multihost = drive_multihost_path(torch, np, params, dev, common,
                                      path["sk"], path["pk"], evk,
-                                     *circuit["keys"],
-                                     serving.pop("stream"))
+                                     *circuit["keys"], stream)
     print_multihost(multihost, serving)
     boot = drive_bootstrap_path(torch, np, dev, common, flush)
     beta64 = drive_beta64_path(torch, np, dev, common,
                                (params, c1, c2, evk, path["sk"]),
                                circuit["keys"])
+    grid = drive_grid_path(torch, np, params, dev, common, flush,
+                           path["pk"], evk, circuit["keys"], stream, serving)
     per_he_mul = {key: sum(n * r[key] for k, counts in
                            HE_MUL_SHAPE_LAUNCHES.items()
                            for n, r in zip(counts, per_kernel[k]))
@@ -2268,6 +2726,8 @@ def main() -> int:
             "serving_path_launches": serving["launches"][name],
             "multihost_path_launches": multihost["launches"].get(name, 0),
             "bootstrap_path_launches": boot["launches"].get(name, 0),
+            # phase 11's ranks, counted in rank 0
+            "grid_path_launches": grid["launches"].get(name, 0),
             "he_mul_launches": path["he_mul_launches"].get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                + edges.get(name, [])),
@@ -2278,6 +2738,24 @@ def main() -> int:
             "headline_shape": main_row["shape"],
             "bytes": main_row["bytes"], "shapes": rows,
             **({"edge_inputs": edges[name]} if name in edges else {})})
+    for name, rows in grid["split_icrt"]["rows"].items():
+        # the headline: the 2-rank grid's shard of region 1 at B = BATCH
+        main_row = next(r for r in rows if "B=" in r["shape"])
+        src, tpu = SOURCES[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/{src}", "replaces": tpu,
+            # the main path of these two: phase 11's 2-rank step (11b) and
+            # served stream (11c), counted in rank 0
+            "launches": grid["launches"].get(name, 0),
+            "grid_path_launches": grid["launches"].get(name, 0),
+            "max_abs_err": 0, "bitwise": True,
+            "bitwise_checks": grid["split_icrt"]["checks"],
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": None,
+            "headline_shape": main_row["shape"],
+            "bytes": main_row["bytes"], "shapes": rows})
     print(json.dumps({"kernels": kernels}))
     # computed, not measured: the two-pass design's bytes at the bound's
     # memory rate, beside each NTT/iNTT shape's measured time
@@ -2324,6 +2802,10 @@ def main() -> int:
         **multihost, "card": card}}))
     print(json.dumps({"bootstrap": {**boot, "card": card}}))
     print(json.dumps({"beta64": {**beta64, "card": card}}))
+    print(json.dumps({"grid": {
+        "params": "paper_params(): logN=16 logQ=1200 beta=2^32",
+        "note": f"{GRID_RANKS} ranks share one card over gloo: not a "
+                f"scaling measurement", **grid, "card": card}}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,9 @@
   - examples: the reference's four named example circuits (degree4,
               affine_sigmoid, rotation_average, bootstrap); `python -m
               repro_torch.analysis` is the CLI over them.
+  - manifest: SHARD_MANIFEST.json's schema and drift diff (stdlib only;
+              not imported here), which `python -m repro_torch.dist
+              --record` writes to.
 """
 
 from repro_torch.analysis import dataflow  # noqa: F401

@@ -94,6 +94,10 @@ class HESession:
         one (batch / server knobs then live on that server).
     batch, **server_kwargs: forwarded to the built HEServer (on
         `device`; max_age_s, overlap, schedule, use_kernels, ...).
+    grid: a HostGrid whose rank 0 this is, forwarded to the built
+        HEServer (`HEServer(grid=)`: tables, keys and every step spread
+        over the model ranks, which run `hserve.serve_follower`); the
+        session itself runs on rank 0 only.
     auto_keys: generate + load missing rotation/conjugation keys at run
         time from the session's sk (ignored without an sk).
     """
@@ -102,7 +106,7 @@ class HESession:
                  rot_keys=None, conj_key=None, *,
                  seed: Optional[int] = None, server=None,
                  device: str | torch.device = "cuda", batch: int = 8,
-                 auto_keys: bool = True, **server_kwargs):
+                 auto_keys: bool = True, grid=None, **server_kwargs):
         self.params = params
         self.device = resolve_device(device)
         if pk is None:
@@ -115,9 +119,9 @@ class HESession:
         if server is None:
             from repro_torch.hserve import HEServer
             server = HEServer(params, evk, rot_keys, conj_key,
-                              device=self.device, batch=batch,
+                              device=self.device, batch=batch, grid=grid,
                               **server_kwargs)
-        elif server_kwargs:
+        elif server_kwargs or grid is not None:
             raise ValueError(
                 "server knobs conflict with an explicit server; "
                 "configure the server you pass in")

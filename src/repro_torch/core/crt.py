@@ -40,7 +40,7 @@ from repro_torch.core.wordops import (
     word_bits,
 )
 
-__all__ = ["crt", "icrt", "finalize_accum"]
+__all__ = ["crt", "icrt", "icrt_partial", "icrt_finish", "finalize_accum"]
 
 
 # --------------------------------------------------------------------------
@@ -172,6 +172,80 @@ def _icrt(r, primes, inv_P, inv_P_shoup, pdivp, P_limbs, P_half, p_inv_f64,
     # corrections make it exact.
     s = torch.floor((temp.double() * p_inv_f64[:, None]).sum(0)).long()
     return finalize_accum(accum, s, P_limbs, P_half, out_limbs, bits=bits)
+
+
+def icrt_partial(r: torch.Tensor, primes: torch.Tensor, inv_P: torch.Tensor,
+                 inv_P_shoup: torch.Tensor, pdivp: torch.Tensor,
+                 p_inv_f64: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """iCRT up to the cross-prime sum, over the primes of one shard.
+
+    r: (np_s, N) residues of the shard's primes; the tables are the rows
+    of those primes in the tables of the whole product P (np_s may be 0).
+    Returns (lo, hi, qsum):
+
+      lo, hi  int64 (N, PL): column k's sum Σ_j temp_j·pdivp[j, k] over
+              the shard's primes as lo + hi·2^32 with lo < 2^32 (the
+              canonical pair);
+      qsum    f64 (N,): Σ_j temp_j·p_inv_j, summed over j in order, each
+              product and each sum rounded (no fused multiply-add), with
+              no floor.
+
+    Summing these over the shards of P's primes (in any grouping) and
+    calling :func:`icrt_finish` gives :func:`icrt`'s words ("matmul",
+    β = 2^32). Bounds, with np ≤ 122 and p < 2^31: temp_j < 2^31 and a
+    pdivp word < 2^32, so a product is below 2^63; its low halves sum
+    below 122·2^32 < 2^39 and its high halves below 122·2^31 < 2^38. So
+    lo < 2^32 and hi < 2^38 + 2^7 here, and after a sum over g shards lo <
+    g·2^32 and hi < 2^38 + g·2^7: far below 2^63 for any g < 2^30.
+    """
+    if word_bits(r) != 32:
+        raise ValueError("icrt_partial takes β = 2^32 words")
+    p = wide(primes)[:, None]
+    temp = shoup_modmul(wide(r), wide(inv_P)[:, None],
+                        wide(inv_P_shoup)[:, None], p)
+    pd = wide(pdivp)
+    N, PL = r.shape[1], pd.shape[1]
+    lo = torch.zeros((N, PL), dtype=torch.int64, device=r.device)
+    hi = torch.zeros_like(lo)
+    qsum = torch.zeros(N, dtype=torch.float64, device=r.device)
+    for j in range(temp.shape[0]):
+        prod = temp[j][:, None] * pd[j][None, :]       # < 2^63
+        lo += prod & M32
+        hi += prod >> 32
+        qsum = qsum + temp[j].double() * p_inv_f64[j]
+    hi += lo >> 32
+    return lo & M32, hi, qsum
+
+
+def icrt_finish(lo: torch.Tensor, hi: torch.Tensor, qsum: torch.Tensor,
+                P_limbs: torch.Tensor, P_half: torch.Tensor,
+                out_limbs: int) -> torch.Tensor:
+    """iCRT after the cross-prime sum: (lo, hi, qsum) summed over every
+    shard of P's primes (see :func:`icrt_partial`) -> (N, out_limbs)
+    centered two's complement, the words of :func:`icrt`.
+
+    lo goes to column k and hi to column k + 1 of the accumulator, which
+    is carried; s = ⌊qsum⌋ and :func:`finalize_accum` do the rest. The f64
+    quotient is exact only through the ±1 ladder there: qsum estimates
+    Σ_j temp_j/p_j, a sum of np ≤ 122 terms each in [0, 1). Each 1/p_j is
+    rounded (relative error 2^-53), each product and each partial sum
+    (below 2^7, so an error of at most 2^-46 each) too, and a sum across
+    g shards adds g − 1 more roundings of the same size: the error stays
+    below 2^-37 whatever the grouping and order, far below 1. So ⌊qsum⌋ is
+    the true quotient or one off it in either direction, even where the
+    sum lies within 2^-40 of an integer, and the ladder makes the result
+    exact. The sum across ranks may round otherwise than one rank's: the
+    words do not change.
+    """
+    N, PL = lo.shape
+    cols = torch.zeros((N, P_limbs.shape[0]), dtype=torch.int64,
+                       device=lo.device)
+    cols[:, :PL] += lo
+    cols[:, 1: PL + 1] += hi
+    s = torch.floor(qsum).long()
+    return finalize_accum(_carry_columns(cols), s, P_limbs, P_half,
+                          out_limbs)
 
 
 def _carry_columns(cols: torch.Tensor) -> torch.Tensor:

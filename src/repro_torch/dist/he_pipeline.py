@@ -23,16 +23,40 @@ The batched stage wrappers are factored into a :class:`StageFns` bundle
 (:func:`make_keyswitch_step`), as in the reference, so that rotations and
 serving can reuse them.
 
+Across ranks: with ``grid=`` a :class:`~repro_torch.launch.mesh.HostGrid`
+whose model axis has g > 1 ranks, the step is one rank's SPMD program, as
+the reference's is under GSPMD with np on "model" and the batch on "data":
+
+  - it takes and returns this rank's batch rows (``he_limb_sharding``;
+    :func:`scatter_batch` / :func:`gather_batch` move a whole batch, booked
+    in the grid's feed log) and this rank's prime rows of every table
+    (:func:`shard_tables`; ``dist.sharding.he_eval_sharding``);
+  - every stage before iCRT (CRT, NTT, the Montgomery and Shoup products,
+    iNTT) runs on the rank's primes through the same kernels; an empty
+    shard skips them without a launch;
+  - ``from_eval`` runs ``icrt_partial`` on the folded batch, then ONE
+    all-reduce each of ``lo``, ``hi`` and ``qsum`` over the model group
+    (three per reduction, as ``he_expected_collectives`` counts), then
+    ``icrt_finish``; the glue after iCRT runs on every model rank on the
+    same words (replicated, as under GSPMD). With ``reduce_scatter_icrt``
+    ``lo``/``hi`` are reduce-scattered over their column axis and
+    all-gathered before the finish (``qsum`` all-reduced): the same words.
+  - Only iCRT "matmul" at β = 2^32 is additive in that form: across ranks
+    ``acc3``/``naive`` and β = 2^64 raise ValueError (ROADMAP A7c).
+
+The words equal the one-rank step's bit for bit. With no grid, or a grid
+of model size 1, the code path is the one-device step's exactly.
+
 Differences from the reference:
 
-  - No mesh. :func:`make_stage_fns` and :func:`make_he_mul_step` take a
-    ``device`` in place of ``mesh`` (default ``"cuda"``, through
-    ``resolve_device``), and the step refuses operands elsewhere;
-    make_stage_fns needs no HEStatic. The
-    ``ev``/``out``/``limbs`` placements are dropped: they are
-    ``with_sharding_constraint`` hints and carry no arithmetic.
-  - Left out: ``reduce_scatter_icrt``, ``he_table_specs`` and
-    ``he_input_specs``. They serve a mesh or the dry-run lowering.
+  - :func:`make_stage_fns` and :func:`make_he_mul_step` take a ``device``
+    (default ``"cuda"``, through ``resolve_device``) and an optional
+    ``grid`` in place of ``mesh``; the step refuses operands elsewhere;
+    make_stage_fns needs no HEStatic. The ``ev``/``out``/``limbs``
+    placements are dropped: under GSPMD they are
+    ``with_sharding_constraint`` hints, here the rank's rows are what it
+    is given. :func:`he_table_specs` and :func:`he_input_specs` give meta
+    tensors in place of ``ShapeDtypeStruct``s.
   - ``stage_timer`` (a :class:`repro_torch.obs.StageTimer`) times each
     stage call eagerly, as the reference's does, with no per-stage jit
     blocks: PyTorch issues every stage as it comes.
@@ -42,7 +66,8 @@ Differences from the reference:
     the accumulator width is read from the region table's ``P_limbs``.
   - With kernels, ``_icrt_b`` launches the iCRT kernel on the (np, B·N)
     fold; that launch includes ``finalize_accum``, which the reference
-    calls after ``icrt_accum_pallas``.
+    calls after ``icrt_accum_pallas``. Across ranks the split kernels
+    (``icrt_partial_op``, ``icrt_finish_op``) take its place.
   - Twiddles by row index: with kernels, ``_ntt_b``/``_intt_b`` hand the
     kernel (B·np, N) rows and the (np, N) tables, and row r takes twiddle
     row r mod np, where the reference tiles the tables B times.
@@ -68,8 +93,10 @@ import torch
 
 from repro_torch.core import bigint
 from repro_torch.core.cipher import EvalKey
-from repro_torch.core.context import HEContext, resolve_device
-from repro_torch.core.crt import crt, icrt
+from repro_torch.core.context import (
+    HEContext, build_icrt_tables, resolve_device,
+)
+from repro_torch.core.crt import crt, icrt, icrt_finish, icrt_partial
 from repro_torch.core.ntt import intt, ntt, pointwise_shoup_scale
 from repro_torch.core.params import HEParams
 from repro_torch.core.rns import kernels_on
@@ -77,14 +104,20 @@ from repro_torch.core.wordops import (
     modadd, modsub, mont_modmul, narrow, wide, word_bits,
 )
 from repro_torch.kernels.crt.ops import crt_op
-from repro_torch.kernels.icrt.ops import icrt_op
+from repro_torch.dist import comm
+from repro_torch.dist.sharding import he_eval_sharding, he_limb_sharding
+from repro_torch.kernels.icrt.ops import (
+    icrt_finish_op, icrt_op, icrt_partial_op,
+)
 from repro_torch.kernels.modmul.ops import pointwise_mont_op
 from repro_torch.kernels.ntt.ops import intt_op, ntt_op
 
 __all__ = [
     "HEStatic", "he_static", "region_tables", "evk_tables",
-    "runtime_tables", "StageFns", "make_stage_fns", "check_operands",
-    "make_keyswitch_step", "make_he_mul_step",
+    "runtime_tables", "shard_tables", "scatter_batch", "gather_batch",
+    "he_table_specs", "he_input_specs", "StageFns", "make_stage_fns",
+    "check_operands", "check_grid", "make_keyswitch_step",
+    "make_he_mul_step",
 ]
 
 # Keys of a region-table dict, in the order region_tables emits them (the
@@ -100,6 +133,15 @@ EVK_TABLE_KEYS = ("ax_ev", "ax_ev_shoup", "bx_ev", "bx_ev_shoup")
 # CRT strategies the kernel has; the others run as acc3 on the kernel path,
 # as the reference's _crt_b does
 _KERNEL_CRT = ("acc3", "mod2", "mod4")
+
+# Entries of a region table with one row per prime (a shard holds its
+# rows); P_limbs and P_half_limbs belong to the whole product P.
+PRIME_ROW_KEYS = tuple(k for k in REGION_TABLE_KEYS
+                       if k not in ("P_limbs", "P_half_limbs"))
+
+# the ROADMAP item of what does not run across ranks yet
+_GRID_TODO = ("across ranks only iCRT \"matmul\" at β = 2^32 is additive "
+              "in the split form; {what} is ROADMAP A7c")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,6 +226,111 @@ def runtime_tables(ctx: HEContext, evk: EvalKey) -> Tuple[Dict, Dict, Dict]:
     """(t1, t2, ek) dicts for running the step, all on ``ctx.device``."""
     ek = {k: v.to(ctx.device) for k, v in evk_tables(evk).items()}
     return region_tables(ctx, 1), region_tables(ctx, 2), ek
+
+
+def aligned(v: torch.Tensor) -> torch.Tensor:
+    """`v` contiguous and 16-byte aligned, as the kernels take their
+    operands: a view that starts inside a row of a per-prime vector (or of
+    pdivp) is copied; the (rows, N) twiddle tables are not (a row of N
+    words starts 16-byte aligned)."""
+    v = v.contiguous()
+    return v if v.data_ptr() % 16 == 0 else v.clone()
+
+
+def _shard_region(t: Dict, rows: slice) -> Dict[str, torch.Tensor]:
+    """A region table cut to the prime rows `rows` (P_limbs and
+    P_half_limbs whole)."""
+    return {k: aligned(v[rows]) if k in PRIME_ROW_KEYS else v
+            for k, v in t.items()}
+
+
+def shard_tables(t1: Dict, t2: Dict, ek: Optional[Dict], grid,
+                 params: Optional[HEParams] = None) -> Tuple:
+    """This rank's prime rows of (t1, t2, ek), a level's region tables and
+    a key: the GSPMD split of ``dist.sharding.he_eval_sharding``, with
+    np_max the region's np at logQ (from `params`; without it the tables'
+    own np, right at logQ) and the key's own rows. Any split gives the
+    same words; this one matches the reference's layout and the
+    TableCache's. `ek` may be None."""
+    np1, np2 = t1["primes"].shape[0], t2["primes"].shape[0]
+    np1_max = params.np_region1(params.logQ) if params else np1
+    np2_max = params.np_region2(params.logQ) if params else (
+        ek["ax_ev"].shape[0] if ek else np2)
+    s1 = _shard_region(t1, he_eval_sharding(grid, np1_max, np1))
+    s2 = _shard_region(t2, he_eval_sharding(grid, np2_max, np2))
+    if ek is not None:
+        rows = he_eval_sharding(grid, ek["ax_ev"].shape[0])
+        ek = {k: aligned(v[rows]) for k, v in ek.items()}
+    return s1, s2, ek
+
+
+def scatter_batch(grid, *xs: torch.Tensor) -> list:
+    """This rank's rows (``he_limb_sharding``) of each full (B, N, qlimbs)
+    batch that rank 0 of its data column holds: the batch is broadcast
+    over the data axis, booked in the grid's feed log."""
+    out = []
+    for x in xs:
+        x = comm.broadcast(grid, x.contiguous(), axis="data", book="feed")
+        out.append(x[he_limb_sharding(grid, x.shape[0])].contiguous())
+    return out
+
+
+def gather_batch(grid, *xs: torch.Tensor, batch: int) -> list:
+    """The full (batch, …) tensors from every data rank's rows of each (the
+    inverse of :func:`scatter_batch`; booked in the feed log). Rows that
+    were replicated (a batch that does not divide) come back as they
+    are."""
+    if batch % grid.data:
+        return list(xs)
+    return [comm.all_gather(grid, x.contiguous(), axis="data", book="feed")
+            for x in xs]
+
+
+def _region_spec(st: HEStatic, npn: int) -> Dict[str, torch.Tensor]:
+    dt = st.dtype
+    N = st.N
+    tabs = build_icrt_tables(st.params, npn)
+
+    def meta(shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return {
+        "primes": meta((npn,)),
+        "psi_rev": meta((npn, N)),
+        "psi_rev_shoup": meta((npn, N)),
+        "ipsi_rev": meta((npn, N)),
+        "ipsi_rev_shoup": meta((npn, N)),
+        "n_inv": meta((npn,)),
+        "n_inv_shoup": meta((npn,)),
+        "pprime": meta((npn,)),
+        "r2": meta((npn,)),
+        "crt_tb": meta((npn, st.qlimbs)),
+        "crt_tb_shoup": meta((npn, st.qlimbs)),
+        "inv_P": meta((npn,)),
+        "inv_P_shoup": meta((npn,)),
+        "pdivp": meta((npn, tabs.plimbs)),
+        "P_limbs": meta((tabs.accum_limbs,)),
+        "P_half_limbs": meta((tabs.accum_limbs,)),
+        "p_inv_f64": meta((npn,), torch.float64),
+    }
+
+
+def he_table_specs(st: HEStatic) -> Tuple[Dict, Dict, Dict]:
+    """(t1, t2, ek) as meta tensors: the reference's abstract table
+    pytrees, shape for shape (the reference's ``crt_tb`` width, K; the
+    port's :func:`region_tables` keeps max(K, 3) columns for CRT's fold),
+    without ``quot_fix``."""
+    t1 = _region_spec(st, st.np1)
+    t2 = _region_spec(st, st.np2)
+    ek = {k: torch.empty((st.np2_max, st.N), dtype=st.dtype, device="meta")
+          for k in EVK_TABLE_KEYS}
+    return t1, t2, ek
+
+
+def he_input_specs(st: HEStatic, batch: int) -> Tuple:
+    """(ax1, bx1, ax2, bx2) ciphertext-batch operands as meta tensors."""
+    return tuple(torch.empty((batch, st.N, st.qlimbs), dtype=st.dtype,
+                             device="meta") for _ in range(4))
 
 
 # --------------------------------------------------------------------------
@@ -289,18 +436,28 @@ class StageFns:
     shoup_mul: Callable[..., torch.Tensor]
     device: torch.device
     timer: Optional[object] = None
+    grid: Optional[object] = None     # a HostGrid of model size > 1
 
 
 def make_stage_fns(device: str | torch.device = "cuda", *,
+                   grid=None,
                    crt_strategy: str = "matmul",
                    icrt_strategy: str = "matmul",
                    modified_shoup: bool = False,
+                   reduce_scatter_icrt: bool = False,
                    use_kernels: bool = False,
                    stage_timer=None) -> StageFns:
     """Bind the strategy knobs into a reusable stage bundle on `device`.
 
     `use_kernels` routes CRT/NTT/iNTT/iCRT/pointwise through the CUDA
     kernels (their plain versions for CPU tensors).
+
+    `grid` (a HostGrid on `device`) of model size g > 1 makes the bundle
+    one rank's part: the stages take the rank's prime rows, and iCRT sums
+    its partial sums across the model group (see the module docstring);
+    `reduce_scatter_icrt` moves lo/hi as reduce-scatter + all-gather. With
+    no grid, or g = 1, both are ignored and the bundle is the one-device
+    one.
 
     `stage_timer` (a `repro_torch.obs.StageTimer`) fences and clocks
     every stage call in the paper's Fig. 3 taxonomy — crt, ntt (forward
@@ -312,27 +469,87 @@ def make_stage_fns(device: str | torch.device = "cuda", *,
             return thunk()
     else:
         timed = stage_timer.timed
+    if grid is not None and grid.model > 1:
+        if grid.device != dev:
+            raise ValueError(f"grid rank on {grid.device}, stages on {dev}")
+        if icrt_strategy != "matmul":
+            raise ValueError(_GRID_TODO.format(
+                what=f"iCRT {icrt_strategy!r}"))
+    else:
+        grid = None
+
+    # On a grid the tables `t` a stage is given are the rank's prime rows,
+    # possibly none: an empty shard launches nothing and still joins iCRT's
+    # all-reduces. One device never sees an empty table.
 
     def to_eval(x, t):
+        if not t["primes"].numel():
+            return x.new_empty((x.shape[0], 0, x.shape[1]))
         r = timed("crt", lambda: _crt_b(x, t, crt_strategy, use_kernels))
         return timed("ntt", lambda: _ntt_b(r, t, modified_shoup,
                                            use_kernels))
 
+    def icrt_across(r, t, out_limbs):
+        if word_bits(r) != 32:
+            raise ValueError(_GRID_TODO.format(what="β = 2^64"))
+        B, _, N = r.shape
+        f = _fold_np(r)
+        if use_kernels:
+            lo, hi, qsum = icrt_partial_op(f, t)
+        else:
+            lo, hi, qsum = icrt_partial(f, t["primes"], t["inv_P"],
+                                        t["inv_P_shoup"], t["pdivp"],
+                                        t["p_inv_f64"])
+        if reduce_scatter_icrt:
+            lo, hi = _rs_ag(grid, lo), _rs_ag(grid, hi)
+        else:
+            comm.all_reduce(grid, lo)
+            comm.all_reduce(grid, hi)
+        comm.all_reduce(grid, qsum)
+        if use_kernels:
+            out = icrt_finish_op(lo, hi, qsum, t, out_limbs)
+        else:
+            out = icrt_finish(lo, hi, qsum, t["P_limbs"],
+                              t["P_half_limbs"], out_limbs)
+        return out.reshape(B, N, out_limbs)
+
     def from_eval(e, t, out_limbs):
         # iNTT books under "ntt": Fig. 3 plots one transform bucket
-        r = timed("ntt", lambda: _intt_b(e, t, modified_shoup, use_kernels))
-        return timed("icrt", lambda: _icrt_b(r, t, out_limbs, icrt_strategy,
+        if e.shape[1]:
+            e = timed("ntt", lambda: _intt_b(e, t, modified_shoup,
+                                             use_kernels))
+        if grid is not None:
+            return timed("icrt", lambda: icrt_across(e, t, out_limbs))
+        return timed("icrt", lambda: _icrt_b(e, t, out_limbs, icrt_strategy,
                                              use_kernels))
 
     def mont_mul(a, b, t):
+        if not a.shape[1]:
+            return a
         return timed("modmul", lambda: _mont_mul_b(a, b, t, use_kernels))
 
     def shoup_mul(e, w, w_shoup, primes):
+        if not e.shape[1]:
+            return e
         return timed("modmul", lambda: pointwise_shoup_scale(
             e, w, w_shoup, primes, modified=modified_shoup))
 
     return StageFns(to_eval=to_eval, from_eval=from_eval, mont_mul=mont_mul,
-                    shoup_mul=shoup_mul, device=dev, timer=stage_timer)
+                    shoup_mul=shoup_mul, device=dev, timer=stage_timer,
+                    grid=grid)
+
+
+def _rs_ag(grid, x: torch.Tensor) -> torch.Tensor:
+    """(BN, PL) summed over the model group as a reduce-scatter of its
+    column axis (padded to a multiple of g) and an all-gather."""
+    g = grid.model
+    cols = x.t().contiguous()
+    PL = cols.shape[0]
+    pad = -(-PL // g) * g - PL
+    if pad:
+        cols = torch.cat([cols, cols.new_zeros((pad, cols.shape[1]))])
+    part = comm.reduce_scatter(grid, cols)
+    return comm.all_gather(grid, part)[:PL].t().contiguous()
 
 
 def _region(sf: StageFns, name: str):
@@ -362,17 +579,20 @@ def make_keyswitch_step(st: HEStatic, sf: StageFns):
     two Shoup pointwise products against the (rotation/evaluation) key,
     iNTT→iCRT at ks_limbs, then the ÷Q rounding shift.
     """
-    np2, ks_limbs = st.np2, st.ks_limbs
+    ks_limbs = st.ks_limbs
     logQ, qlimbs = st.params.logQ, st.qlimbs
 
     def ks(t2, ek, d):
         with _region(sf, "region2"):
             e2 = sf.to_eval(d, t2)
             p2 = t2["primes"]
+            # the key's rows of this level's primes: [:np2], or across
+            # ranks the first of the rank's rows that the level keeps
+            n2 = p2.shape[0]
             out = []
             for key in ("ax_ev", "bx_ev"):
-                prod = sf.shoup_mul(e2, ek[key][:np2],
-                                    ek[key + "_shoup"][:np2], p2)
+                prod = sf.shoup_mul(e2, ek[key][:n2],
+                                    ek[key + "_shoup"][:n2], p2)
                 out.append(bigint.shift_right_round(
                     sf.from_eval(prod, t2, ks_limbs), logQ,
                     out_limbs=qlimbs))
@@ -381,10 +601,18 @@ def make_keyswitch_step(st: HEStatic, sf: StageFns):
     return ks
 
 
+def check_grid(st: HEStatic, grid) -> None:
+    """Refuse a word mode that does not run across ranks yet."""
+    if grid is not None and grid.model > 1 and st.params.beta_bits != 32:
+        raise ValueError(_GRID_TODO.format(what="β = 2^64"))
+
+
 def make_he_mul_step(st: HEStatic, device: str | torch.device = "cuda", *,
+                     grid=None,
                      crt_strategy: str = "matmul",
                      icrt_strategy: str = "matmul",
                      modified_shoup: bool = False,
+                     reduce_scatter_icrt: bool = False,
                      use_kernels: bool = False,
                      stage_timer=None):
     """Build step(t1, t2, ek, ax1, bx1, ax2, bx2) -> (ax3, bx3).
@@ -395,13 +623,21 @@ def make_he_mul_step(st: HEStatic, device: str | torch.device = "cuda", *,
     kernels, keeping the bitwise contract (β = 2^32 only: at β = 2^64 it
     raises ValueError); `stage_timer` books each stage and both regions
     into a StageTimer (same words).
+
+    With `grid` of model size g > 1 the step is this rank's part: it takes
+    the rank's batch rows and the rank's rows of the tables
+    (:func:`shard_tables`), and gives the rank's rows of the result, equal
+    to the one-rank step's bit for bit; `reduce_scatter_icrt` as in
+    :func:`make_stage_fns`.
     """
     kernels_on(use_kernels, st.params)
+    check_grid(st, grid)
     logq, qlimbs = st.logq, st.qlimbs
     bits = st.params.beta_bits
-    sf = make_stage_fns(device, crt_strategy=crt_strategy,
+    sf = make_stage_fns(device, grid=grid, crt_strategy=crt_strategy,
                         icrt_strategy=icrt_strategy,
                         modified_shoup=modified_shoup,
+                        reduce_scatter_icrt=reduce_scatter_icrt,
                         use_kernels=use_kernels, stage_timer=stage_timer)
     keyswitch = make_keyswitch_step(st, sf)
 

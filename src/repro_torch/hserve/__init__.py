@@ -68,7 +68,7 @@ from repro_torch.hserve.frontend import (  # noqa: F401
     FrontendCatalog, HEFrontend, NoLiveWorkersError,
 )
 from repro_torch.hserve.scheduler import CircuitScheduler  # noqa: F401
-from repro_torch.hserve.server import HEServer  # noqa: F401
+from repro_torch.hserve.server import HEServer, serve_follower  # noqa: F401
 from repro_torch.hserve.tables import PlainCache, TableCache  # noqa: F401
 from repro_torch.hserve.transport import (  # noqa: F401
     InProcTransport, SubprocessTransport, WorkerDied,
@@ -83,5 +83,5 @@ __all__ = [
     "slot_sum_rotations",
     "HEFrontend", "FrontendCatalog", "NoLiveWorkersError",
     "WorkerEngine", "InProcTransport", "SubprocessTransport",
-    "WorkerDied",
+    "WorkerDied", "serve_follower",
 ]

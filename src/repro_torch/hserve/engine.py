@@ -43,6 +43,15 @@ carry no arithmetic and are dropped, and so is its jit: PyTorch issues
 every step eagerly, so ``profile_stages`` changes only the StageTimer
 threaded through the knobs. Operands are (B, N, qlimbs) at the step's
 level on its device; a step refuses others.
+
+Across ranks, as the reference's steps take the mesh: the knob ``grid``
+(a HostGrid of model size > 1) makes each stage step one rank's part —
+rotate, conjugate, slot_sum and mul_plain run the sharded stages on the
+rank's prime rows of the tables and keys, with iCRT's partial sums
+all-reduced over the model group (``dist.he_pipeline``); the limb steps
+(rescale, mod_down, mod_raise, add/sub, add_plain) run on the rank's
+batch rows with no collective. ``OpEngine(grid=)`` threads it through
+every step; its table cache then holds the rank's rows.
 """
 
 from __future__ import annotations
@@ -62,7 +71,7 @@ from repro_torch.core.rotate import (
     automorphism_poly, conjugation_k, rotation_k,
 )
 from repro_torch.dist.he_pipeline import (
-    HEStatic, check_operands, he_static, make_he_mul_step,
+    HEStatic, check_grid, check_operands, he_static, make_he_mul_step,
     make_keyswitch_step, make_stage_fns,
 )
 from repro_torch.obs.stages import StageTimer
@@ -118,6 +127,7 @@ def make_he_rotate_step(st: HEStatic, device: str | torch.device, k: int,
 
     Serves both "rotate" (k = 5^r) and "conjugate" (k = 2N−1); rk is the
     Galois key as a table dict (``he_pipeline.evk_tables``)."""
+    check_grid(st, knobs.get("grid"))
     sf = make_stage_fns(device, **knobs)
     keyswitch = make_keyswitch_step(st, sf)
     auto_b = _make_automorphism_b(st, k)
@@ -135,6 +145,7 @@ def make_slot_sum_step(st: HEStatic, device: str | torch.device,
     slot: acc ← acc + rotate(acc, r) for r = 1, 2, 4, … — log₂(n) rounds,
     one key switch each. `rks` is a tuple of rotation-key dicts in
     slot_sum_rotations(n_slots) order."""
+    check_grid(st, knobs.get("grid"))
     sf = make_stage_fns(device, **knobs)
     keyswitch = make_keyswitch_step(st, sf)
     autos = [_make_automorphism_b(st, rotation_k(st.params, r))
@@ -221,6 +232,7 @@ def make_mul_plain_step(st: HEStatic, device: str | torch.device, **knobs):
     both components. np₁ covers 2N·q², the bound `core.heaan.he_mul_plain`
     uses, and iCRT reconstructs the exact product, so each item equals
     he_mul_plain bit for bit."""
+    check_grid(st, knobs.get("grid"))
     sf = make_stage_fns(device, **knobs)
     logq, qlimbs = st.logq, st.qlimbs
 
@@ -280,6 +292,12 @@ class OpEngine:
     `wait` synchronizes its event, re-wraps the valid rows as Ciphertexts
     with the op's output level metadata, and returns the host-observed
     wall time. `run` = wait(dispatch(batch)).
+
+    With `grid` (model size > 1) every step is this rank's part and
+    `cache` holds this rank's rows. `relay(key, arrays)` (the serving
+    leader's ``relay_batch``) hands each step's signature and operands to
+    the followers just before the step runs here, so every rank of the
+    model group runs the same steps in the same order.
     """
 
     def __init__(self, params: HEParams, device: str | torch.device,
@@ -287,10 +305,12 @@ class OpEngine:
                  crt_strategy: str = "matmul",
                  icrt_strategy: str = "matmul",
                  modified_shoup: bool = False, tracer=None,
-                 profile_stages: bool = False):
+                 profile_stages: bool = False, grid=None, relay=None):
         self.params = params
         self.device = resolve_device(device)
         self.cache = cache
+        self.grid = grid if grid is not None and grid.model > 1 else None
+        self.relay = relay
         self.profile_stages = profile_stages
         # Fig. 3 attribution: the timer rides the stage bundle's knobs and
         # fences every stage; the steps are the same otherwise
@@ -303,6 +323,8 @@ class OpEngine:
                            modified_shoup=modified_shoup)
         if profile_stages:
             self._knobs["stage_timer"] = self.stage_timer
+        if self.grid is not None:
+            self._knobs["grid"] = self.grid
         self._steps: Dict[Tuple, Callable] = {}
         self._static: Dict[int, HEStatic] = {}
         self._warmed: set = set()
@@ -385,6 +407,21 @@ class OpEngine:
         return runner
 
     @property
+    def knobs(self) -> dict:
+        """The strategy knobs every step is built with (what a follower's
+        engine must match)."""
+        return {k: self._knobs[k] for k in ("use_kernels", "crt_strategy",
+                                            "icrt_strategy",
+                                            "modified_shoup")}
+
+    def run_step(self, key: Tuple, arrays: Dict[str, torch.Tensor]):
+        """Run the step of signature `key` on `arrays` (relayed to the
+        followers first on a serving leader); returns (ax, bx)."""
+        if self.relay is not None:
+            self.relay(key, arrays)
+        return self._step_for(key)(arrays)
+
+    @property
     def n_compiled(self) -> int:
         """Steps built (one per signature; the reference's count of
         compiled steps)."""
@@ -419,14 +456,14 @@ class OpEngine:
             args={"op": batch.op, "logq": batch.logq}) \
             if self._tracer is not None else None
         t0 = time.perf_counter()
-        runner = self._step_for(batch.key)
+        self._step_for(batch.key)
         arrays = self._place(batch)
         if self.stage_timer is not None:
             # warm runs must not pollute the Fig. 3 attribution
             with self.stage_timer.pause():
-                runner(arrays)
+                self.run_step(batch.key, arrays)
         else:
-            runner(arrays)
+            self.run_step(batch.key, arrays)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.compile_s += time.perf_counter() - t0
@@ -445,14 +482,13 @@ class OpEngine:
         against this step, then `wait`s.
         """
         self.warm_batch(batch)
-        runner = self._step_for(batch.key)
         arrays = self._place(batch)
         t0 = time.perf_counter()
         if self.stage_timer is not None:
             with self.stage_timer.op(batch.op):
-                ax, bx = runner(arrays)
+                ax, bx = self.run_step(batch.key, arrays)
         else:
-            ax, bx = runner(arrays)
+            ax, bx = self.run_step(batch.key, arrays)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()

@@ -55,18 +55,33 @@ table slices while the current batch is in flight (riding the same
 dispatch/wait double buffer). Scheduling never changes a result bit;
 it only reorders drain flushes and warms caches.
 
-This is the JAX package's ``hserve/server.py`` on one device: ``device=``
-(default "cuda", through ``core.context.resolve_device``) in place of
-``mesh=``, and ``stats()["device"]`` in place of ``stats()["mesh"]``. The
-queue refuses operands that lie elsewhere, at submit. ``submit_bootstrap``
-serves a `repro_torch.boot` plan like any circuit, and a tracer gets its
-``boot.*`` lane.
+This is the JAX package's ``hserve/server.py``: ``device=`` (default
+"cuda", through ``core.context.resolve_device``) and an optional ``grid=``
+in place of ``mesh=``, and ``stats()["device"]`` (and ``stats()["grid"]``)
+in place of ``stats()["mesh"]``. The queue refuses operands that lie
+elsewhere, at submit. ``submit_bootstrap`` serves a `repro_torch.boot` plan
+like any circuit, and a tracer gets its ``boot.*`` lane.
+
+Across ranks (``grid=`` a HostGrid of data size 1 and model size R > 1,
+this process its rank 0): the queue, the scheduler and the metrics run
+here only; every other rank runs :func:`serve_follower`. The server
+broadcasts over the model group (``relay_*``), before each engine step
+runs here, a header (JSON: op, level, extra, the operands' names,
+shapes and types) and then the operands; the followers run the same step
+on their prime rows, and iCRT's all-reduces inside it give every rank
+the same words, so the results are rank 0's own. Keys reach the
+followers the same way (whole; each keeps its rows), booked in the
+grid's feed log. ``close()`` (or a stop message) ends the followers'
+loops; a follower that dies makes rank 0's next broadcast or all-reduce
+raise, within the grid's time limit at most.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import time
+from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -80,10 +95,122 @@ from repro_torch.hserve.metrics import ServeMetrics
 from repro_torch.hserve.queue import Batch, BatchAssembler, PLAIN_OPS, \
     RequestQueue
 from repro_torch.hserve.scheduler import CircuitScheduler
+from repro_torch.dist import comm
+from repro_torch.dist.he_pipeline import check_grid, he_static
 from repro_torch.hserve.tables import TableCache
 from repro_torch.obs.registry import MetricsRegistry
 
-__all__ = ["HEServer"]
+__all__ = ["HEServer", "serve_follower", "relay_init", "relay_key",
+           "relay_batch"]
+
+
+_KEY_FIELDS = ("ax_ev", "ax_ev_shoup", "bx_ev", "bx_ev_shoup")
+
+
+# The serving leader's messages to the other ranks of its model group: a
+# header broadcast from rank 0 (its length, then its JSON bytes, on the
+# host under gloo), then its tensors broadcast on the grid's device.
+
+def _header_device(grid) -> torch.device:
+    """The host where the backend takes host tensors (gloo), else the
+    grid's device (nccl)."""
+    return torch.device("cpu") \
+        if "cpu" in comm.DEVICE_SUPPORT[grid.backend]["broadcast"] \
+        else grid.device
+
+
+def _send_header(grid, head: dict) -> None:
+    data = json.dumps(head).encode()
+    dev = _header_device(grid)
+    comm.broadcast(grid, torch.tensor([len(data)], dtype=torch.int64,
+                                      device=dev))
+    comm.broadcast(grid, torch.frombuffer(bytearray(data), dtype=torch.uint8
+                                          ).to(dev))
+
+
+def _recv_header(grid) -> dict:
+    dev = _header_device(grid)
+    n = comm.broadcast(grid, torch.zeros(1, dtype=torch.int64, device=dev))
+    buf = comm.broadcast(grid, torch.zeros(int(n.item()), dtype=torch.uint8,
+                                           device=dev))
+    return json.loads(bytes(buf.tolist()).decode())
+
+
+def _to_followers(grid, tensors) -> None:
+    for t in tensors:
+        comm.broadcast(grid, t.to(grid.device).contiguous())
+
+
+def relay_init(grid, knobs: dict) -> None:
+    """Tell the followers the engine knobs to build their engines with."""
+    _send_header(grid, {"kind": "init", "knobs": knobs})
+
+
+def relay_key(grid, kind: str, r: Optional[int], key: EvalKey) -> None:
+    """Send the followers a key, whole ("evk", "rot" with its amount,
+    "conj"); each keeps its rows."""
+    ts = [getattr(key, f) for f in _KEY_FIELDS]
+    _send_header(grid, {"kind": "key", "key": kind, "r": r,
+                        "shape": list(ts[0].shape)})
+    _to_followers(grid, ts)
+
+
+def relay_batch(grid, key: Tuple, arrays: Dict[str, torch.Tensor]) -> None:
+    """Send the followers one engine step's signature and operands."""
+    _send_header(grid, {
+        "kind": "batch", "key": list(key),
+        "arrays": [[k, list(v.shape), str(v.dtype).removeprefix("torch.")]
+                   for k, v in arrays.items()]})
+    _to_followers(grid, arrays.values())
+
+
+def serve_follower(grid, params: HEParams) -> dict:
+    """A model rank other than 0 of a serving grid: build this rank's
+    TableCache and OpEngine from the leader's init message, then run every
+    step (and load every key) the leader relays, until its stop message.
+    Returns this rank's counts: steps run, the feed and step logs, and its
+    table cache's stats. Every wait is a collective, bounded by the grid's
+    time limit; a leader that is gone makes it raise."""
+    if grid.model_rank == 0 or grid.data != 1:
+        raise ValueError("serve_follower runs on model ranks 1.. of a grid "
+                         "of data size 1; rank 0 runs HEServer(grid=)")
+    head = _recv_header(grid)
+    if head["kind"] != "init":
+        raise RuntimeError(f"follower expected init, got {head['kind']!r}")
+    cache = TableCache(params, device=grid.device, grid=grid)
+    engine = OpEngine(params, grid.device, cache, grid=grid,
+                      **head["knobs"])
+    steps = 0
+    while True:
+        head = _recv_header(grid)
+        kind = head["kind"]
+        if kind == "stop":
+            break
+        if kind == "key":
+            ts = [comm.broadcast(grid, torch.empty(
+                head["shape"], dtype=torch.int32, device=grid.device))
+                for _ in _KEY_FIELDS]
+            ek = EvalKey(*ts)
+            if head["key"] == "evk":
+                cache.set_evk(ek)
+            elif head["key"] == "rot":
+                cache.add_rot_key(int(head["r"]), ek)
+            else:
+                cache.add_conj_key(ek)
+        elif kind == "batch":
+            arrays = {name: comm.broadcast(grid, torch.empty(
+                shape, dtype=getattr(torch, dtype), device=grid.device))
+                for name, shape, dtype in head["arrays"]}
+            op, logq, extra = head["key"]
+            engine.run_step((op, int(logq), extra), arrays)
+            steps += 1
+        else:
+            raise RuntimeError(f"unknown relay message {kind!r}")
+    if grid.device.type == "cuda":
+        torch.cuda.synchronize(grid.device)
+    return {"rank": grid.rank, "steps": steps,
+            "feed": comm.summary(grid, "feed"),
+            "step": comm.summary(grid, "step"), "cache": cache.stats()}
 
 
 class _CircuitState:
@@ -159,11 +286,20 @@ class HEServer:
             CircuitScheduler, and the engine register as pull sources;
             `registry.snapshot()` is the live-telemetry JSON heartbeats
             embed.
+    grid:   optional HostGrid of data size 1 whose rank 0 this is: with
+            model size R > 1 the tables and keys are held as each rank's
+            prime rows and every step runs on all R ranks, the others
+            in `serve_follower` (see the module docstring); call
+            `close()` to end them. Model size 1 is the one-device server.
     """
 
     # the arrival-rate estimate decays over this many deadline windows,
     # so a post-idle trickle sees its own rate, not the last burst's
     _RATE_DECAY_WINDOWS = 8
+    # one device unless __init__ is given a grid (HEFrontend never is);
+    # _open while the followers of a grid still serve
+    grid = None
+    _open = False
 
     def __init__(self, params: HEParams, evk: Optional[EvalKey] = None,
                  rot_keys: Optional[Dict[int, EvalKey]] = None,
@@ -180,16 +316,42 @@ class HEServer:
                  plain_cache_mib: Optional[float] = 256.0,
                  clock: Callable[[], float] = time.perf_counter,
                  tracer=None, profile_stages: bool = False,
-                 registry=None,
+                 registry=None, grid=None,
                  **engine_knobs):
         device = resolve_device(device)
-        self.cache = TableCache(params, evk, rot_keys, conj_key,
-                                plain_cache_mib=plain_cache_mib,
-                                device=device)
-        self.engine = OpEngine(params, device, self.cache,
-                               use_kernels=use_kernels, tracer=tracer,
-                               profile_stages=profile_stages,
-                               **engine_knobs)
+        self.grid = grid if grid is not None and grid.model > 1 else None
+        if self.grid is None:
+            self.cache = TableCache(params, evk, rot_keys, conj_key,
+                                    plain_cache_mib=plain_cache_mib,
+                                    device=device)
+            self.engine = OpEngine(params, device, self.cache,
+                                   use_kernels=use_kernels, tracer=tracer,
+                                   profile_stages=profile_stages,
+                                   **engine_knobs)
+        else:
+            if grid.data != 1 or grid.rank != 0 or grid.device != device:
+                raise ValueError(
+                    f"HEServer(grid=) runs on rank 0 of a grid of data "
+                    f"size 1, on the grid's device; got rank {grid.rank} "
+                    f"of {grid.name} on {grid.device}, asked {device}")
+            check_grid(he_static(params, params.logQ), self.grid)
+            self._open = True
+            self.cache = TableCache(
+                params, plain_cache_mib=plain_cache_mib, device=device,
+                grid=self.grid, relay=partial(relay_key, self.grid))
+            self.engine = OpEngine(params, device, self.cache,
+                                   use_kernels=use_kernels, tracer=tracer,
+                                   profile_stages=profile_stages,
+                                   grid=self.grid,
+                                   relay=partial(relay_batch, self.grid),
+                                   **engine_knobs)
+            relay_init(self.grid, self.engine.knobs)
+            if evk is not None:
+                self.cache.set_evk(evk)
+            for r, rk in (rot_keys or {}).items():
+                self.cache.add_rot_key(r, rk)
+            if conj_key is not None:
+                self.cache.add_conj_key(conj_key)
         self._init_core(params, device=device, batch=batch,
                         max_age_s=max_age_s,
                         adaptive_target=adaptive_target, overlap=overlap,
@@ -757,8 +919,17 @@ class HEServer:
         self.metrics = ServeMetrics()
         self.scheduler.reset_counters()
 
+    def close(self) -> None:
+        """End the followers' loops (a grid); nothing on one device."""
+        if self._open:
+            _send_header(self.grid, {"kind": "stop"})
+            self._open = False
+
     def stats(self) -> dict:
         st = self.engine.stage_timer
+        grid = {} if self.grid is None else {"grid": {
+            **self.grid.describe(), "feed": comm.summary(self.grid, "feed"),
+            "step": comm.summary(self.grid, "step")}}
         return {
             **self.metrics.summary(),
             **({"stages": st.summary()} if st is not None else {}),
@@ -777,4 +948,5 @@ class HEServer:
                           "prefetch_tables": self.prefetch,
                           **self.scheduler.stats()},
             "submitted": self.queue.submitted,
+            **grid,
         }

@@ -42,9 +42,11 @@ SMEM_LIMIT = 232_448  # dynamic shared memory a Hopper block may use
 # The variants count apart, so that a run shows which of them it launched:
 # crt_mod2/crt_mod4 are crt with strategy "mod2"/"mod4", ntt_modified and
 # intt_modified the transforms with modified=True.
+# icrt_partial/icrt_finish are iCRT split at the cross-prime sum, for
+# primes spread over ranks.
 LAUNCHES = {"modmul": 0, "ntt": 0, "intt": 0, "crt": 0, "icrt": 0,
             "crt_mod2": 0, "crt_mod4": 0, "ntt_modified": 0,
-            "intt_modified": 0}
+            "intt_modified": 0, "icrt_partial": 0, "icrt_finish": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PI = ctypes.POINTER(ctypes.c_int)
@@ -54,6 +56,8 @@ SIGNATURES = {
     "ntt_inverse_launch": [_P] * 7 + [_I] * 5 + [_PI, _P],
     "crt_launch": [_P] * 5 + [_I] * 8 + [_P],
     "icrt_launch": [_P] * 9 + [_I] * 8 + [_P],
+    "icrt_partial_launch": [_P] * 9 + [_I] * 6 + [_P],
+    "icrt_finish_launch": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,6 +1,7 @@
 """Timed variants of the iCRT kernel, on one NVIDIA card.
 
-    PYTHONPATH=src python -m repro_torch.kernels.icrt.variants
+    PYTHONPATH=src python -m repro_torch.kernels.icrt.variants \
+        [--against OTHER/icrt.cu]
 
 Each variant in :data:`VARIANTS` is ``csrc/icrt.cu`` with one piece of its
 text replaced, built with the library's nvcc flags into a shared library of
@@ -13,15 +14,21 @@ for bit against ``icrt_ref``, and all are timed in turns with the kernel:
 kernel, variants, variants in reverse, kernel; each turn is the median of
 20 launches by CUDA events with the L2 cache flushed before each. Prints
 ptxas' registers and spills of each build, the card, and one JSON line.
+``--against`` adds one more exact entry, "against": another version of
+the whole file (another commit's ``icrt.cu``, with the same
+``icrt_launch``), built and timed in the same turns, so that two versions
+of the kernel are compared on one card in one call.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 from repro_torch.kernels import common
 
@@ -83,15 +90,19 @@ def variant_source(text: str, edits: list) -> str:
     return text
 
 
-def _build_variants() -> dict:
+def _build_variants(against=None) -> dict:
     out_root = common.BUILD_ROOT.parent / "icrt_variants"
     text = (common.CSRC / "icrt.cu").read_text()
+    sources = {name: variant_source(text, edits)
+               for name, (_, _, edits) in VARIANTS.items()}
+    if against is not None:
+        sources["against"] = against.read_text()
     nvcc = common._nvcc()
     procs = {}
-    for name, (_, _, edits) in VARIANTS.items():
+    for name, source in sources.items():
         d = out_root / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "icrt.cu").write_text(variant_source(text, edits))
+        (d / "icrt.cu").write_text(source)
         procs[name] = (d, subprocess.Popen(
             [nvcc, *common.NVCC_FLAGS, "-I", str(common.CSRC), "-shared",
              str(d / "icrt.cu"), "-o", str(d / "libicrt.so")],
@@ -111,7 +122,13 @@ def _build_variants() -> dict:
     return libs
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.kernels.icrt.variants")
+    ap.add_argument("--against", type=Path, default=None,
+                    help="another version of csrc/icrt.cu to time in turns "
+                         "with this one")
+    args = ap.parse_args(argv)
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -128,7 +145,7 @@ def main() -> int:
     for line in log[log.index("== icrt.cu"):].split("\n== ")[0].splitlines():
         if "registers" in line or "spill" in line.lower():
             print(f"ptxas kernel: {line.strip()}")
-    libs = {"kernel": common.library(), **_build_variants()}
+    libs = {"kernel": common.library(), **_build_variants(args.against)}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -158,6 +175,7 @@ def main() -> int:
             calls = {name: (lib, args) for name, lib in libs.items()}
             calls.update({name: (libs["kernel"], (*args[:-1], smem))
                           for name, smem in OCCUPANCY.items()})
+            # "against" and the occupancy entries compute the function
             exact = {name: VARIANTS[name][1] if name in VARIANTS else True
                      for name in calls}
 

@@ -1,8 +1,9 @@
 """The paper's own workload as a serving entry point: a batched HE
 request stream through :class:`repro_torch.hserve.HEServer` (queue →
-level-aware table cache → engine → metrics) on one device, or through the
-multi-host tier (:class:`repro_torch.hserve.HEFrontend` and its workers),
-driven by a :class:`repro_torch.client.HESession`.
+level-aware table cache → engine → metrics) on one device or across the
+model ranks of a grid, or through the multi-host tier
+(:class:`repro_torch.hserve.HEFrontend` and its workers), driven by a
+:class:`repro_torch.client.HESession`.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --he --batch 4 \\
         --requests 24 --levels 3 --rotations 4 --conjugations 2 \\
@@ -10,12 +11,15 @@ driven by a :class:`repro_torch.client.HESession`.
         [--overlap] [--no-kernels] [--trace T.json] [--profile-stages] \\
         [--metrics M.json] [--traced 2] [--check off|warn|error] \\
         [--workers 2 --transport inproc|subprocess] [--bootstrap [N]] \
-        [--device cuda]
+        [--model-shards R] [--device cuda]
 
 This is the JAX package's ``launch/serve.py`` ``serve_he``, at its SMOKE
-parameters (``boot_params()`` with ``--bootstrap``). Not ported yet:
-``--model-shards`` (the batched step across ranks) and the LM serving
-path.
+parameters (``boot_params()`` with ``--bootstrap``). ``--model-shards R``
+spawns a grid of R model ranks (data size 1; ``launch.mesh.spawn_grid``)
+on the card, or on the CPU with ``--device cpu``: rank 0 serves as
+without it, through ``HEServer(grid=)``, and the other ranks run
+``hserve.serve_follower``. On one card the ranks share it (gloo). Not
+ported yet: the LM serving path.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from repro_torch.core.context import resolve_device
 from repro_torch.core.keys import keygen
 from repro_torch.core.params import HEParams, test_params
 from repro_torch.hserve import HEFrontend, degree4_demo_circuit
+from repro_torch.hserve.server import serve_follower
+from repro_torch.launch.mesh import spawn_grid
 from repro_torch.obs import Tracer
 
 __all__ = ["SMOKE", "serve_he", "main"]
@@ -50,6 +56,7 @@ def serve_he(batch: int, requests: int = 0, levels: int = 1,
              trace: str | None = None, profile_stages: bool = False,
              metrics: str | None = None, workers: int = 0,
              transport: str = "inproc", bootstrap: int = 0,
+             model_shards: int = 1, grid=None,
              device: str | torch.device = "cuda") -> dict:
     """Batched multi-level HE serving on `device` (default the card; raises
     without CUDA), driven through an HESession (keygen, encrypt/decrypt;
@@ -89,8 +96,27 @@ def serve_he(batch: int, requests: int = 0, levels: int = 1,
     bit), and under `schedule` with two or more, to cross-circuit
     co-batching; the stats gain a "bootstrap" block with the measured
     error, the bound, and the cross-circuit co-batch rate.
+
+    `model_shards` R > 1 serves the same stream across R model ranks:
+    spawns the grid (its ranks on `device`) and returns rank 0's stats,
+    which name the grid; rank 0 runs this function with `grid` (its
+    HostGrid) and the others ``serve_follower``. Bit for bit the
+    one-device path.
     """
-    dev = resolve_device(device)
+    if model_shards > 1:
+        if workers > 0:
+            raise ValueError("--model-shards with --workers is not ported "
+                             "yet (ROADMAP: HEFrontend on a model grid)")
+        kw = dict(batch=batch, requests=requests, levels=levels,
+                  rotations=rotations, conjugations=conjugations,
+                  plain_frac=plain_frac, use_kernels=use_kernels,
+                  max_age_s=max_age_s, overlap=overlap, circuit=circuit,
+                  schedule=schedule, traced=traced, check=check, seed=seed,
+                  trace=trace, profile_stages=profile_stages,
+                  metrics=metrics, bootstrap=bootstrap)
+        return spawn_grid(_serve_rank, model=model_shards, device=device,
+                          args=(kw,))[0]
+    dev = grid.device if grid is not None else resolve_device(device)
     params = boot_params() if bootstrap else SMOKE
     requests = requests or 2 * batch + 1   # force >1 batch and padding
     # the lowest level logq = logp is excluded: mul results there cannot
@@ -122,14 +148,23 @@ def serve_he(batch: int, requests: int = 0, levels: int = 1,
         session = HESession(params, seed=0, device=dev, batch=batch,
                             use_kernels=use_kernels, max_age_s=max_age_s,
                             overlap=overlap, schedule=schedule,
-                            tracer=tracer, profile_stages=profile_stages)
+                            tracer=tracer, profile_stages=profile_stages,
+                            grid=grid)
     try:
         return _serve(session, params, requests, levels, rotations,
                       conjugations, plain_frac, circuit, schedule, traced,
                       check, seed, tracer, trace, metrics, bootstrap)
     finally:
-        if workers > 0:
+        if workers > 0 or grid is not None:
             session.server.close()
+
+
+def _serve_rank(grid, kw: dict):
+    """One rank of ``serve_he(model_shards=R)``: rank 0 serves, the others
+    follow."""
+    if grid.model_rank == 0:
+        return serve_he(grid=grid, **kw)
+    return serve_follower(grid, boot_params() if kw["bootstrap"] else SMOKE)
 
 
 def _serve(session, params, requests, levels, rotations, conjugations,
@@ -356,6 +391,11 @@ def main(argv=None) -> None:
                          "Switches the run to the reference bootstrap "
                          "params (logQ=336, h=2); results are held to "
                          "the plan's error bound")
+    ap.add_argument("--model-shards", type=int, default=1, metavar="R",
+                    help="spread the tables, keys and every step's primes "
+                         "over R model ranks (spawned processes on "
+                         "--device; one card is shared by all, over gloo); "
+                         "1 = one rank")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome trace-event JSON of the request "
@@ -383,7 +423,7 @@ def main(argv=None) -> None:
                      metrics=args.metrics, traced=args.traced,
                      check=args.check, workers=args.workers,
                      transport=args.transport, bootstrap=args.bootstrap,
-                     device=args.device)
+                     model_shards=args.model_shards, device=args.device)
     ops = ", ".join(
         f"{op}: {d['requests']} reqs @ {d['ops_per_s']}/s "
         f"(p50 {d['latency_ms']['p50']}ms, "
@@ -393,6 +433,11 @@ def main(argv=None) -> None:
     # device is only the host tier that frames them
     where = (f"{stats['frontend']['worker_device']} workers (host tier "
              f"{stats['device']})" if args.workers else stats["device"])
+    if "grid" in stats:
+        g = stats["grid"]
+        where += (f" grid {g['data']}x{g['model']} ({g['backend']}, "
+                  f"{g['step']['counts'].get('all-reduce', 0)} all-reduces "
+                  f"on rank 0)")
     print(f"hserve batch={stats['batch']} on {where} "
           f"levels={stats['levels_served']} "
           f"steps_compiled={stats['engine']['steps_compiled']} "

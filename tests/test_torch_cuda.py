@@ -799,3 +799,104 @@ def test_cuda_beta64_he_mul_equals_cpu(dev):
     assert np.abs(got - z[0] * z[1]).max() < 1e-3
     with pytest.raises(ValueError, match="use_kernels=False"):
         H.he_mul(c1, c2, evk, params)
+
+
+# --------------------------------------------------------------------------
+# iCRT split at the cross-prime sum, and the step across ranks
+# --------------------------------------------------------------------------
+
+def _shard(t, s):
+    return {k: (v[s].clone() if k not in ("P_limbs", "P_half_limbs") else v)
+            for k, v in t.items()}
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("region", [1, 2])
+def test_cuda_icrt_partial_and_finish_match_twins(dev, region, B):
+    """icrt_partial equals its plain twin bit for bit (lo, hi and the f64
+    qsum) on every shard of paper_params()' np into 2 and 4 ranks (41/40,
+    61/61, 21/20/20/20, 31/31/30/30), on one prime and on an empty shard
+    (which launches nothing); the partials of each split, summed, finish
+    (icrt_finish == its twin) to the fused icrt_op's words, on random
+    residues and on every residue p − 1."""
+    from repro_torch.core.context import device_icrt_tables, device_tables
+    from repro_torch.dist.sharding import prime_rows
+    from repro_torch.kernels.icrt.ops import icrt_finish_op, icrt_partial_op
+    from repro_torch.kernels.icrt.ref import (
+        icrt_finish_ref, icrt_partial_ref,
+    )
+    p = paper_params()
+    logq = p.logQ
+    npn = p.np_region1(logq) if region == 1 else p.np_region2(logq)
+    out_limbs = p.qlimbs(logq) if region == 1 else \
+        p.limbs_for_bits(logq + p.logQ) + 1
+    g = device_tables(p, dev)
+    t = icrt_inputs(device_icrt_tables(p, npn, dev), g)
+    primes = g.primes.cpu().numpy().view(np.uint32)
+    n = B * p.N
+    for r in (_t(_residues(primes, npn, n, 40 + region + B), dev),
+              _t(np.repeat(primes[:npn, None] - 1, n, 1), dev)):
+        whole = icrt_op(r, t, out_limbs)
+        common.reset_launches()
+        for s in (slice(0, 1), slice(0, 0)):
+            got = icrt_partial_op(r[s], _shard(t, s))
+            want = icrt_partial_ref(r[s], _shard(t, s))
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert common.LAUNCHES["icrt_partial"] == 1
+        for g_ in (2, 4):
+            parts = []
+            for k in range(g_):
+                s = prime_rows(npn, g_, k)
+                got = icrt_partial_op(r[s], _shard(t, s))
+                want = icrt_partial_ref(r[s], _shard(t, s))
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+                parts.append(got)
+            summed = [sum(x[i] for x in parts) for i in range(3)]
+            fin = icrt_finish_op(*summed, t, out_limbs)
+            assert torch.equal(fin, icrt_finish_ref(*summed, t, out_limbs))
+            assert torch.equal(fin, whole)
+        torch.cuda.synchronize()
+        assert common.LAUNCHES["icrt_partial"] == 7
+        assert common.LAUNCHES["icrt_finish"] == 2
+
+
+def _cuda_grid_step_rank(grid):
+    """One rank of a 2-rank grid on the card: the sharded kernel step at
+    test_params(logN=10) against the one-rank kernel step."""
+    from repro_torch.dist import comm
+    from repro_torch.dist import he_pipeline as hp
+    from repro_torch.hserve.tables import TableCache
+    p = small_params(logN=10, beta_bits=32, logQ=240, logp=24)
+    dev = grid.device
+    _, pk, evk = keygen(p, seed=4, device=dev)
+    rng = np.random.default_rng(6)
+    cts = [H.encrypt_message(rng.normal(size=8) + 1j * rng.normal(size=8),
+                             pk, p, seed=60 + i) for i in range(8)]
+    xs = [torch.stack([getattr(c, f) for c in cts[s::2]])
+          for s, f in ((0, "ax"), (0, "bx"), (1, "ax"), (1, "bx"))]
+    st = hp.he_static(p, p.logQ)
+    tabs = hp.runtime_tables(make_context(p, p.logQ, dev), evk)
+    want = hp.make_he_mul_step(st, dev, use_kernels=True)(*tabs, *xs)
+    cache = TableCache(p, evk, device=dev, grid=grid)
+    t1, t2 = cache.level_tables(p.logQ)
+    common.reset_launches()
+    got = hp.make_he_mul_step(st, dev, grid=grid, use_kernels=True)(
+        t1, t2, cache.evk(), *xs)
+    torch.cuda.synchronize()
+    return {"bitwise": all(torch.equal(a, b) for a, b in zip(got, want)),
+            "launches": {k: v for k, v in common.LAUNCHES.items() if v},
+            "schedule": comm.summary(grid, "step")["counts"]}
+
+
+def test_cuda_grid_step_equals_one_rank_kernel_step(dev):
+    """Two ranks on this card (gloo): the sharded step through the
+    kernels (the split iCRT among them) equals the one-rank kernel step
+    bit for bit, with 15 all-reduces a step."""
+    from repro_torch.launch.mesh import spawn_grid
+    for res in spawn_grid(_cuda_grid_step_rank, model=2, device="cuda",
+                          timeout_s=120):
+        assert res["bitwise"]
+        assert res["schedule"] == {"all-reduce": 15}
+        assert res["launches"]["icrt_partial"] == 5
+        assert res["launches"]["icrt_finish"] == 5
+        assert "icrt" not in res["launches"]

@@ -375,10 +375,19 @@ def test_plain_cache_counters_match_the_reference_cache(keys):
 
 
 # Public names of a reference class that its port may lack, each with the
-# reason. A7b's names (the batched step across ranks: he_table_specs,
-# he_input_specs, --model-shards) and A14's (the LM side) are module
-# functions and flags outside these packages, so no class here lacks one.
+# reason. A14's names (the LM side) are module functions and flags outside
+# these packages, so no class here lacks one.
 ALLOWED_GAPS = {
+    ("dist.he_pipeline", "HEStatic"): {
+        "icrt1": "the port's HEStatic holds no iCRT tables: the "
+                 "accumulator width is read from the region table",
+        "icrt2": "as icrt1"},
+    ("dist.he_pipeline", "StageFns"): {
+        "ev": "a with_sharding_constraint placement: a rank computes on "
+              "the rows it is given",
+        "out": "as ev",
+        "modified_shoup": "bound into the stage closures; read nowhere "
+                          "in the reference"},
     ("core.context", "IcrtTables"): {
         "quot_fix": "TPU-only: the Pallas iCRT's fixed-point quotient "
                     "(no f64 on the TPU); the CUDA iCRT takes p_inv_f64"},
@@ -387,6 +396,12 @@ ALLOWED_GAPS = {
                  "reads crt_tb[:, :3]",
         "betak_shoup": "as betak"},
 }
+
+
+# Modules of the port with no module of the reference to hold them to:
+# the collectives the reference leaves to XLA's partitioner, and the
+# schedule record the reference measures from compiled HLO (shardlint).
+PORT_ONLY_MODULES = {"dist.comm", "dist.record"}
 
 
 def _public_names(cls) -> set:
@@ -398,15 +413,18 @@ def _public_names(cls) -> set:
 
 
 def test_ported_classes_have_the_reference_public_names():
-    """Every class the port defines in core, hserve, client and boot has
-    each public name (attributes, methods, properties, dataclass fields)
-    of the reference class it ports, except the gaps listed above."""
+    """Every class the port defines in core, hserve, client, boot and dist
+    (the classes given a grid among them: HEServer, OpEngine, TableCache,
+    HESession, StageFns) has each public name (attributes, methods,
+    properties, dataclass fields) of the reference class it ports, except
+    the gaps listed above."""
     compared, gaps = 0, {}
-    for pkg in ("core", "hserve", "client", "boot"):
+    for pkg in ("core", "hserve", "client", "boot", "dist"):
         package = importlib.import_module(f"repro_torch.{pkg}")
         names = [pkg] + [f"{pkg}.{m.name}" for m in
                          pkgutil.iter_modules(package.__path__)
-                         if m.name != "__main__"]
+                         if m.name != "__main__"
+                         and f"{pkg}.{m.name}" not in PORT_ONLY_MODULES]
         for name in names:
             port = importlib.import_module(f"repro_torch.{name}")
             ref = importlib.import_module(f"repro.{name}")

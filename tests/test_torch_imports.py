@@ -50,6 +50,10 @@ def test_no_module_of_the_port_imports_jax_or_repro():
                  "repro_torch.analysis.examples",
                  "repro_torch.analysis.__main__", "repro_torch.boot",
                  "repro_torch.boot.modraise", "repro_torch.boot.linear",
-                 "repro_torch.boot.evalmod", "repro_torch.boot.pipeline"):
+                 "repro_torch.boot.evalmod", "repro_torch.boot.pipeline",
+                 "repro_torch.launch.mesh", "repro_torch.dist.sharding",
+                 "repro_torch.dist.comm", "repro_torch.dist.record",
+                 "repro_torch.dist.__main__",
+                 "repro_torch.analysis.manifest"):
         assert name in got["modules"]
     assert got["bad"] == []
