@@ -177,6 +177,35 @@ Phases; any failure exits non-zero and prints no result:
    phase 7's HEServer result bit for bit, the drain wall beside phase
    7's first; then ``serve_he(model_shards=2)`` at SMOKE, its max_err ==
    phase 7's SMOKE run's.
+12. The HE side's last modules: workers on model grids and β = 2^64
+   served (12b's servers at batch BETA64_SERVE_BATCH). 12a: phase 7's
+   requests at logq 1200 (8 of its 24; cut: no
+   circuit, the other levels left out, as every step crosses gloo's host
+   path) through ``HEFrontend(transport="subprocess",
+   worker_devices=GRID_RANKS)``: one worker process, rank 0 of its own
+   2-rank grid on the card with its follower spawned beside it, killed at
+   its 2nd batch (``FailureInjector``): the poll that finds no worker
+   leaves its batch queued, ``revive_workers()`` respawns the group and
+   every result equals phase 7's HEServer result bit for bit; the killed
+   worker's follower must end; then a timed pass with the group's counts
+   set to 0 before and read after (the split iCRT kernels launch inside
+   it, the fused one does not), its drain wall, the collectives' share of
+   the worker's busy time and the frame bytes printed beside phases 7, 8
+   and 11's drains. 12b: ``paper_params(beta_bits=64)`` uncut on phase
+   10's keys: mul, rotate and conjugate through HEServer and through
+   HEFrontend with a worker process, equal to phase 10's single ops word
+   for word (int64 (N, qlimbs) from the frontend); one ``HESession.run``
+   of ((x·x) + x).rotate(1).conj() equal to ``execute_circuit_reference``
+   of its compiled ops and within 1e-2; the B = BETA64_BATCH step on the
+   2-rank grid equal to phase 10c's words, its schedule (the column form)
+   == ``he_expected_collectives``. 12c: one bootstrap at
+   ``boot_params(logN=4, beta_bits=64)`` served through an HESession,
+   equal to the plain ``execute_circuit_reference`` and within
+   ``error_bound()``. No kernel launches at β = 2^64 (checked). 12d: the
+   2-rank kernel step at ``paper_params()`` with ``icrt_strategy="acc3"``
+   (every strategy name takes the split kernels on a grid) equal to 11b's
+   default words at logQ, its schedule the matmul form's. 12b's grid step
+   and 12d share one spawn of the grid.
 
 Before the last line it prints the nvidia-smi line, one JSON line of
 per-kernel numbers (``{"kernels": [...]}``: the headline times are those
@@ -187,7 +216,8 @@ the circuit path's JSON line, the serving JSON line
 (``{"serving": {...}}``), the multi-host JSON line (``{"multihost":
 {...}}``), the bootstrap JSON line (``{"bootstrap": {...}}``), the
 β = 2^64 JSON line (``{"beta64": {...}}``), the grid JSON line
-(``{"grid": {...}}``) and the nvidia-smi line again; the last line
+(``{"grid": {...}}``), the phase 12 JSON line (``{"finish": {...}}``)
+and the nvidia-smi line again; the last line
 is ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -272,6 +302,9 @@ BOOT_USABLE = 2.0 ** -6
 # product coefficients held against python ints
 BETA64_BATCH = 4
 BETA64_CPU_LOGN = 12
+# Phase 12b: the batch of the β = 2^64 servers (a plain step at B = 4
+# takes ≈ 3 s; one item a batch keeps the served stream to a few seconds)
+BETA64_SERVE_BATCH = 1
 BETA64_SAMPLES = 8
 # Phase 11, the HE pipeline across ranks: the model ranks sharing the
 # card, the rungs of the 2-rank step (make_he_mul_step keywords), and the
@@ -1136,12 +1169,13 @@ def sync(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve_stream(torch, server, reqs, circs) -> tuple:
+def serve_stream(torch, server, reqs, circs, drain=None) -> tuple:
     """Phase 7's stream on `server` (an HEServer or an HEFrontend): the
     requests, the first circuit, one flush (the two degree-4 circuits run
-    out of phase), the rest, a drain. Operands are moved to the server's
-    device first, outside the timed span. Returns the results in submit
-    order and the drain wall."""
+    out of phase), the rest, a drain (`drain(server)`, default
+    ``server.drain()``). Operands are moved to the server's device first,
+    outside the timed span. Returns the results in submit order and the
+    drain wall."""
     import dataclasses
     dev = server.device
     calls = [(getattr(server, meth), [moved(a, dev) for a in args],
@@ -1152,10 +1186,13 @@ def serve_stream(torch, server, reqs, circs) -> tuple:
     sync(torch, dev)
     t0 = time.perf_counter()
     rids = [f(*a, **kw) for f, a, kw in calls]
-    cids = [server.submit_circuit(cins[0][0], {"x": cins[0][1]})]
-    res = dict(server.poll(flush=True))
-    cids += [server.submit_circuit(ops, {"x": x}) for ops, x in cins[1:]]
-    res.update(server.drain())
+    cids, res = [], {}
+    if cins:
+        cids = [server.submit_circuit(cins[0][0], {"x": cins[0][1]})]
+        res = dict(server.poll(flush=True))
+        cids += [server.submit_circuit(ops, {"x": x})
+                 for ops, x in cins[1:]]
+    res.update(drain(server) if drain else server.drain())
     sync(torch, dev)
     wall = time.perf_counter() - t0
     require(not server.queue.depth and not server._work_pending()
@@ -2179,6 +2216,8 @@ def drive_beta64_path(torch, np, dev, common, mul32, galois32=None
     print(f"β=2^64 use_kernels=True refused by he_mul and the step; phase "
           f"10 took {phase_s:.1f} s", flush=True)
     return {
+        # phase 12b's keys, ciphertexts, single ops and step
+        "_keep": {"run": run, "step_args": args, "step_out": (ax3, bx3)},
         "params": "paper_params(beta_bits=64): logN=16 logQ=1200 beta=2^64",
         "qlimbs": ctx.qlimbs, "np1": ctx.np1, "np2": ctx.np2,
         "tables": tables, "ops_s": ops_s, "errors": errs,
@@ -2521,6 +2560,9 @@ def drive_grid_step(torch, np, params, dev, flush, pk, evk) -> dict:
 
     return {"ranks": GRID_RANKS, "split_icrt": split,
             "step_launches": launches,
+            # phase 12d's operands and the one-rank words it is held to
+            "_keep": {"evk": on_host(evk), "operands": operands[params.logQ],
+                      "want": refs[(params.logQ, "default")]},
             "step": {"cases": r0["cases"], "spawn_and_run_s": step_s,
                      "tables_s": [r["tables_s"] for r in ranks],
                      "resident": [r["cache"] for r in ranks],
@@ -2593,6 +2635,380 @@ def drive_grid_serving(torch, params, dev, evk, keys, stream,
             "serve_he_smoke": {"max_err": smoke["max_err"], "s": smoke_s,
                                "grid": {k: smoke["grid"][k] for k in
                                         ("data", "model", "backend")}}}
+
+
+def drain_reviving(server) -> dict:
+    """Drain an HEFrontend whose only worker may die: a poll that finds no
+    live worker leaves its batch queued (NoLiveWorkersError), the workers
+    are revived and polling goes on. Returns {rid: result} with
+    ``server.revivals`` counting the revivals."""
+    from repro_torch.hserve import NoLiveWorkersError
+    res: dict = {}
+    server.revivals = 0
+    while server.queue.depth or server._work_pending() or server._circuits:
+        try:
+            res.update(server.poll(flush=True))
+        except NoLiveWorkersError:
+            server.revive_workers()
+            server.revivals += 1
+    return res
+
+
+def finish_grid_rank(grid, p32, evk32, operands32, want32, p64, evk64,
+                     args64, want64) -> dict:
+    """Phase 12b's and 12d's steps in one rank of the 2-rank grid: at
+    β = 2^64 the plain step at B = BETA64_BATCH (its words against the
+    one-rank step of phase 10c), and at β = 2^32 the kernel step with
+    iCRT "acc3" (against phase 11b's default words); each timed once
+    more (β = 2^64: median of 3). Every rank runs the same calls."""
+    import torch
+    from repro_torch.dist import comm
+    from repro_torch.dist import he_pipeline as hp
+    from repro_torch.dist.sharding import he_expected_collectives
+    from repro_torch.hserve.tables import TableCache
+    from repro_torch.kernels import common
+
+    dev = grid.device
+    out = {"rank": grid.rank}
+    for name, params, evk, xs, want, kw, reps in (
+            ("acc3", p32, evk32, operands32, want32,
+             {"use_kernels": True, "icrt_strategy": "acc3"}, 1),
+            ("beta64", p64, evk64, args64, want64, {}, 3)):
+        cache = TableCache(params, evk, device=dev, grid=grid)
+        t1, t2 = cache.level_tables(params.logQ)
+        st = hp.he_static(params, params.logQ)
+        step = hp.make_he_mul_step(st, dev, grid=grid, **kw)
+        xs = [x.to(dev) for x in xs]
+
+        def run(step=step, t1=t1, t2=t2, xs=xs, cache=cache):
+            return step(t1, t2, cache.evk(), *xs)
+
+        sync(torch, dev)
+        comm.reset(grid)
+        common.reset_launches()
+        got = run()
+        sync(torch, dev)
+        launches = {k: v for k, v in common.LAUNCHES.items() if v}
+        exp = he_expected_collectives(
+            "mul", grid, params, params.logQ, batch=xs[0].shape[0],
+            icrt_strategy=kw.get("icrt_strategy", "matmul"),
+            use_kernels=kw.get("use_kernels", False))
+        case = {"bitwise": all(torch.equal(a.cpu(), b)
+                               for a, b in zip(got, want)),
+                "launches": launches, "schedule": comm.summary(grid, "step"),
+                "expected": {"counts": exp["counts"],
+                             "wire_bytes": exp["wire_bytes"]}}
+        ms = []
+        comm.reset(grid)
+        for _ in range(reps):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            run()
+            sync(torch, dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        timed = comm.summary(grid, "step")
+        case.update(ms=ms, ms_per_step=statistics.median(ms),
+                    collective_share=timed["seconds"] * 1e3 / sum(ms))
+        out[name] = case
+        del cache, step, got
+    return out
+
+
+def drive_finish_path(torch, np, params, dev, common, evk, keys, stream,
+                      serving, multihost, beta64, grid) -> dict:
+    """Phase 12 (see the module docstring)."""
+    import dataclasses
+    from repro_torch.boot import boot_params, bootstrap_circuit
+    from repro_torch.client import HESession
+    from repro_torch.core import heaan as H
+    from repro_torch.core.cipher import EvalKey
+    from repro_torch.core.keys import keygen
+    from repro_torch.core.params import paper_params
+    from repro_torch.core.rns import PipelineConfig
+    from repro_torch.core.rotate import conj_keygen, rot_keygen
+    from repro_torch.dist import he_pipeline as hp
+    from repro_torch.hserve import HEFrontend, HEServer
+    from repro_torch.hserve import circuit as C
+    from repro_torch.launch.mesh import spawn_grid
+    from repro_torch.runtime import FailureInjector
+
+    phase_t0 = time.perf_counter()
+    plain = PipelineConfig(use_kernels=False)
+    out: dict = {}
+
+    def on_host(key):
+        return EvalKey(*(getattr(key, f).cpu() for f in hp.EVK_TABLE_KEYS))
+
+    def ended(pid) -> bool:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+        except FileNotFoundError:
+            return True
+
+    def wait_ended(pids, timeout_s=30.0) -> bool:
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if all(ended(p) for p in pids):
+                return True
+            time.sleep(0.2)
+        return False
+
+    # ---- 12a: the frontend's worker process on a 2-rank grid -------------
+    reqs, _, outs, labels = stream
+    top = f"@{params.logQ}"
+    cut = [i for i, r in enumerate(reqs) if r[0].endswith(top)]
+    reqs12 = [reqs[i] for i in cut]
+    want12 = [outs[i] for i in cut]
+    labels12 = [labels[i] for i in cut]
+    rks, ck = keys
+    t0 = time.perf_counter()
+    fe = HEFrontend(params, evk, rks, ck, workers=1, transport="subprocess",
+                    worker_device=str(dev), worker_devices=GRID_RANKS,
+                    batch=SERVE_BATCH, schedule=True,
+                    injector=FailureInjector(kill_worker_at={0: 2}))
+    a: dict = {"start_s": time.perf_counter() - t0,
+               "requests": len(reqs12), "init_bytes": fe.workers[0].init_bytes}
+    try:
+        first = list(fe.workers[0].followers)
+        require(len(first) == GRID_RANKS - 1 and not any(map(ended, first)),
+                f"12a: the worker's followers {first}")
+        got, a["kill_drain_s"] = serve_stream(torch, fe, reqs12, [],
+                                              drain=drain_reviving)
+        for label, x, y in zip(labels12, got, want12):
+            require(same_ct(x, y), f"12a: {label} through the killed and "
+                    f"revived worker grid differs from phase 7's HEServer")
+        fr = fe.stats()["frontend"]
+        require(fe.revivals == 1 and fr["deaths"] == 1
+                and fr["requeued_requests"] > 0 and fr["alive"] == 1,
+                f"12a: the kill and revival did not happen as set: {fr}")
+        require(wait_ended(first), f"12a: a follower {first} outlived its "
+                f"killed worker")
+        require(fe.workers[0].followers
+                and fe.workers[0].followers != first,
+                "12a: the revived worker spawned no new follower")
+        a["kill"] = {k: fr[k] for k in ("deaths", "requeued_requests")}
+        fe.injector = None
+        # the timed pass: the group's counts set to 0 just before it and
+        # read just after
+        fe.reset_metrics()
+        fe.worker_stats(reset_launches=True)
+        got, a["drain_s"] = serve_stream(torch, fe, reqs12, [])
+        snap = fe.worker_stats()[0]
+        for label, x, y in zip(labels12, got, want12):
+            require(same_ct(x, y), f"12a: {label} differs from phase 7's")
+        a["launches"] = {k: v for k, v in snap["kernels"].items() if v}
+        # (a rehearsal on the CPU launches nothing)
+        require(dev.type != "cuda" or (
+            a["launches"].get("icrt_partial", 0) > 0
+            and a["launches"].get("icrt_finish", 0) > 0
+            and "icrt" not in a["launches"]),
+                f"12a: the split kernels did not launch inside the worker "
+                f"group: {a['launches']}")
+        w = fe.workers[0]
+        a["batches"] = len(w.frame_log)
+        a["busy_s"] = w.busy_s
+        a["frame_bytes"] = [f["send"]["bytes"] + f["recv"]["bytes"]
+                            for f in w.frame_log]
+        a["grid_step"] = snap["grid"]["step"]
+        a["collective_share"] = snap["grid"]["step"]["seconds"] / w.busy_s
+        a["followers"] = list(w.followers)
+    finally:
+        fe.close()
+    require(wait_ended(first + a.get("followers", [])),
+            "12a: a follower outlived the frontend")
+    mh_sub = multihost.get("subprocess", {})
+    print(f"12a: {len(reqs12)} of phase 7's requests (those at logq "
+          f"{params.logQ}; no circuit) through 1 worker process on a "
+          f"{GRID_RANKS}-rank grid of one card: killed at its 2nd batch, "
+          f"{a['kill']['requeued_requests']} requests requeued, revived (a "
+          f"new follower), every result == phase 7's HEServer bit for bit; "
+          f"timed drain {a['drain_s'] * 1e3:.1f} ms in {a['batches']} "
+          f"batches, collectives {a['collective_share']:.1%} of the "
+          f"worker's busy {a['busy_s'] * 1e3:.1f} ms, frame bytes "
+          f"{a['frame_bytes']}; worker group launches {a['launches']}. "
+          f"Beside (whole stream of {len(reqs)} requests + 3 circuits): "
+          f"phase 7 HEServer {serving['first_drain_s'] * 1e3:.1f} ms, "
+          f"phase 8 worker processes "
+          f"{mh_sub.get('drain_s', float('nan')) * 1e3:.1f} ms, phase 11c "
+          f"HEServer(grid=) {grid['serving']['drain_s'] * 1e3:.1f} ms",
+          flush=True)
+    out["12a"] = a
+
+    # ---- 12b: β = 2^64 served, uncut --------------------------------------
+    keep = beta64.pop("_keep")
+    run = keep["run"]
+    p64 = paper_params(beta_bits=64)
+    b: dict = {}
+    singles = {"mul": run["mul"], "rotate": run["rot"],
+               "conjugate": run["conj"]}
+
+    def submit64(server, c1, c2):
+        return {"mul": server.submit_mul(c1, c2),
+                "rotate": server.submit_rotate(c1, 1),
+                "conjugate": server.submit_conjugate(c1)}
+
+    common.reset_launches()
+    srv = HEServer(p64, run["evk"], {1: run["rk"]}, run["ck"], device=dev,
+                   batch=BETA64_SERVE_BATCH, use_kernels=False)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    rids = submit64(srv, run["c1"], run["c2"])
+    res = srv.drain()
+    sync(torch, dev)
+    b["heserver_drain_s"] = time.perf_counter() - t0
+    for op, rid in rids.items():
+        require(same_ct(res[rid], singles[op]),
+                f"12b: HEServer {op} at β=2^64 differs from the single op")
+    del srv
+    host = torch.device("cpu")
+    t0 = time.perf_counter()
+    fe = HEFrontend(p64, on_host(run["evk"]), {1: on_host(run["rk"])},
+                    on_host(run["ck"]), workers=1, transport="subprocess",
+                    worker_device=str(dev), batch=BETA64_SERVE_BATCH,
+                    use_kernels=False)
+    try:
+        b["frontend_start_s"] = time.perf_counter() - t0
+        b["frontend_init_bytes"] = fe.workers[0].init_bytes
+        t0 = time.perf_counter()
+        rids = submit64(fe, run["c1"].to(host), run["c2"].to(host))
+        res = fe.drain()
+        b["frontend_drain_s"] = time.perf_counter() - t0
+        for op, rid in rids.items():
+            x = res[rid]
+            require(x.ax.dtype == torch.int64
+                    and x.ax.shape == singles[op].ax.shape
+                    and same_ct(x, singles[op]),
+                    f"12b: HEFrontend {op} at β=2^64 differs from the "
+                    f"single op")
+        b["frame_bytes"] = [f["send"]["bytes"] + f["recv"]["bytes"]
+                            for f in fe.workers[0].frame_log]
+        b["worker_launches"] = {k: v for k, v in fe.worker_stats()[0][
+            "kernels"].items() if v}
+    finally:
+        fe.close()
+    session = HESession(p64, run["sk"], run["pk"], run["evk"],
+                        rot_keys={1: run["rk"]}, conj_key=run["ck"],
+                        device=dev, batch=BETA64_SERVE_BATCH,
+                        use_kernels=False)
+    z1 = run["z"][0]
+    x = session.input(run["c1"])
+    expr = ((x * x) + x).rotate(1).conj()
+    cc = session.compile(expr)
+    t0 = time.perf_counter()
+    y = session.run([expr])[0].result()
+    sync(torch, dev)
+    b["session_s"] = time.perf_counter() - t0
+    ref = C.execute_circuit_reference(
+        cc.ops, cc.inputs, p64, evk=run["evk"], rot_keys={1: run["rk"]},
+        conj_key=run["ck"], cfg=plain)
+    require(same_ct(y, ref), "12b: HESession.run at β=2^64 differs from "
+            "execute_circuit_reference of its compiled ops")
+    b["session_err"] = float(np.abs(
+        session.decrypt(y) - np.conj(np.roll(z1 * z1 + z1, -1))).max())
+    require(b["session_err"] < 1e-2,
+            f"12b: HESession.run decrypts {b['session_err']:.2e} off")
+    require(sum(common.LAUNCHES.values()) == 0,
+            f"12b: the β=2^64 path launched a kernel: {common.LAUNCHES}")
+    del session
+    print(f"12b: paper_params(beta_bits=64) uncut: mul, rotate, conjugate "
+          f"through HEServer ({b['heserver_drain_s'] * 1e3:.1f} ms drain) "
+          f"and through HEFrontend with a worker process (init frame "
+          f"{b['frontend_init_bytes'] / 1e6:.1f} MB, drain "
+          f"{b['frontend_drain_s'] * 1e3:.1f} ms, frames {b['frame_bytes']} "
+          f"B) == the single ops word for word, int64 (N, qlimbs); "
+          f"HESession.run ((x*x)+x).rotate(1).conj() == "
+          f"execute_circuit_reference, error {b['session_err']:.2e}, in "
+          f"{b['session_s']:.1f} s; no kernel launched", flush=True)
+
+    # ---- 12c: one bootstrap at boot_params(logN=4, beta_bits=64) ---------
+    pb = boot_params(logN=4, beta_bits=64)
+    sk, pk, bevk = keygen(pb, seed=0, cfg=plain, device=dev)
+    plan = bootstrap_circuit(pb, logq_in=pb.logp, device=dev)
+    rot = {req[1]: rot_keygen(pb, sk, req[1], cfg=plain, device=dev)
+           for req in plan.requires if req[0] == "rot"}
+    conj = conj_keygen(pb, sk, cfg=plain, device=dev) \
+        if ("conj",) in plan.requires else None
+    server = HEServer(pb, bevk, rot, conj, device=dev, batch=BOOT_BATCH,
+                      schedule=True, use_kernels=False)
+    session = HESession(pb, sk, pk, bevk, server=server, device=dev)
+    rng = np.random.default_rng(21)
+    z = rng.uniform(-1, 1, pb.n_slots_max) + 1j * rng.uniform(
+        -1, 1, pb.n_slots_max)
+    z *= 2.0 ** -5 / np.max(np.abs(z))
+    ct = H.he_mod_down(H.encrypt_message(z, pk, pb, seed=31, cfg=plain), pb,
+                       pb.logp)
+    t0 = time.perf_counter()
+    refreshed = session.bootstrap(ct).result()
+    sync(torch, dev)
+    c = {"drain_s": time.perf_counter() - t0, "nodes": len(plan.ops)}
+    want = C.execute_circuit_reference(plan.resolved_ops(), {"x": ct}, pb,
+                                       evk=bevk, rot_keys=rot,
+                                       conj_key=conj, cfg=plain)
+    require(refreshed.ax.dtype == torch.int64 and same_ct(refreshed, want),
+            "12c: the served β=2^64 bootstrap differs from the plain "
+            "execute_circuit_reference")
+    c["err"] = float(np.abs(session.decrypt(refreshed) - z).max())
+    c["bound"] = plan.error_bound()
+    require(c["err"] <= c["bound"], f"12c: bootstrap error {c['err']:.3e} "
+            f"over its bound {c['bound']:.3e}")
+    require(sum(common.LAUNCHES.values()) == 0,
+            f"12c: the β=2^64 bootstrap launched a kernel: {common.LAUNCHES}")
+    del server, session
+    print(f"12c: one bootstrap at boot_params(logN=4, beta_bits=64) served "
+          f"({c['nodes']} nodes, {c['drain_s']:.2f} s) == the plain path "
+          f"bit for bit, error {c['err']:.3e} within {c['bound']:.3e}",
+          flush=True)
+
+    # ---- 12b's step on the grid and 12d, in one spawn ---------------------
+    g = grid.pop("_keep")
+    t0 = time.perf_counter()
+    ranks = spawn_grid(
+        finish_grid_rank, model=GRID_RANKS, device=dev.type,
+        args=(params, g["evk"], g["operands"], g["want"], p64,
+              on_host(run["evk"]), [x.cpu() for x in keep["step_args"]],
+              [x.cpu() for x in keep["step_out"]]))
+    spawn_s = time.perf_counter() - t0
+    for res in ranks:
+        for name in ("acc3", "beta64"):
+            case = res[name]
+            what = f"rank {res['rank']} {name}"
+            require(case["bitwise"], f"12b/12d: the 2-rank step {what} "
+                    f"differs from the one-rank words")
+            sch, exp = case["schedule"], case["expected"]
+            require(sch["counts"] == exp["counts"]
+                    and sch["total_bytes"] == exp["wire_bytes"],
+                    f"12b/12d: {what} schedule {sch['counts']} "
+                    f"{sch['total_bytes']} against {exp}")
+        require(dev.type != "cuda" or (
+            res["acc3"]["launches"].get("icrt_partial", 0) > 0
+            and "icrt" not in res["acc3"]["launches"]),
+                f"12d: rank {res['rank']} launches {res['acc3']['launches']}")
+        require(not res["beta64"]["launches"],
+                f"12b: the β=2^64 grid step launched "
+                f"{res['beta64']['launches']}")
+    r0 = ranks[0]
+    for name, what in (("beta64", "12b: make_he_mul_step at β=2^64"),
+                       ("acc3", "12d: iCRT \"acc3\" on the kernel path")):
+        case = r0[name]
+        print(f"{what}, B = {BETA64_BATCH if name == 'beta64' else BATCH} "
+              f"on {GRID_RANKS} ranks of one card: == the one-rank words; "
+              f"{case['ms_per_step']:.1f} ms a step (median of "
+              f"{len(case['ms'])}), "
+              f"collectives {case['collective_share']:.1%}; schedule "
+              f"{case['schedule']['counts']} "
+              f"{case['schedule']['total_bytes']:.0f} B == expected",
+              flush=True)
+    b["grid_step"] = {k: v for k, v in r0["beta64"].items()}
+    out["12b"] = b
+    out["12c"] = c
+    out["12d"] = r0["acc3"]
+    out["grid_spawn_and_run_s"] = spawn_s
+    # rank 0's launches in 12a's timed pass (inside the worker) and 12d
+    out["launches"] = summed(a["launches"], r0["acc3"]["launches"])
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"phase 12 took {out['phase_s']:.1f} s", flush=True)
+    return out
 
 
 def profile(torch, fn) -> dict:
@@ -2692,6 +3108,9 @@ def main() -> int:
                                circuit["keys"])
     grid = drive_grid_path(torch, np, params, dev, common, flush,
                            path["pk"], evk, circuit["keys"], stream, serving)
+    finish = drive_finish_path(torch, np, params, dev, common, evk,
+                               circuit["keys"], stream, serving, multihost,
+                               beta64, grid)
     per_he_mul = {key: sum(n * r[key] for k, counts in
                            HE_MUL_SHAPE_LAUNCHES.items()
                            for n, r in zip(counts, per_kernel[k]))
@@ -2713,12 +3132,14 @@ def main() -> int:
             # served stream's first drain), phase 8 (the timed drains of
             # the subprocess workers, counted inside them, and of the
             # in-process workers), phase 9 (the served bootstraps at
-            # logN 4 and 10)
+            # logN 4 and 10), phase 12 (12a's timed drain inside the
+            # worker group, 12d on rank 0)
             "launches": path["launches"][name] + batched["launches"][name]
             + circuit["launches"][name] + circuit["steps_launches"][name]
             + serving["launches"][name]
             + multihost["launches"].get(name, 0)
-            + boot["launches"].get(name, 0),
+            + boot["launches"].get(name, 0)
+            + finish["launches"].get(name, 0),
             "main_path_launches": path["launches"][name],
             "batched_step_launches": batched["launches"][name],
             "circuit_path_launches": circuit["launches"][name],
@@ -2728,6 +3149,9 @@ def main() -> int:
             "bootstrap_path_launches": boot["launches"].get(name, 0),
             # phase 11's ranks, counted in rank 0
             "grid_path_launches": grid["launches"].get(name, 0),
+            # phase 12: 12a's worker group (its rank 0) and 12d's rank 0;
+            # the β = 2^64 paths of 12b and 12c launch none
+            "finish_path_launches": finish["launches"].get(name, 0),
             "he_mul_launches": path["he_mul_launches"].get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                + edges.get(name, [])),
@@ -2746,9 +3170,12 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/{src}", "replaces": tpu,
             # the main path of these two: phase 11's 2-rank step (11b) and
-            # served stream (11c), counted in rank 0
-            "launches": grid["launches"].get(name, 0),
+            # served stream (11c), and phase 12's worker group (12a) and
+            # acc3 step (12d), counted in rank 0
+            "launches": grid["launches"].get(name, 0)
+            + finish["launches"].get(name, 0),
             "grid_path_launches": grid["launches"].get(name, 0),
+            "finish_path_launches": finish["launches"].get(name, 0),
             "max_abs_err": 0, "bitwise": True,
             "bitwise_checks": grid["split_icrt"]["checks"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
@@ -2806,6 +3233,11 @@ def main() -> int:
         "params": "paper_params(): logN=16 logQ=1200 beta=2^32",
         "note": f"{GRID_RANKS} ranks share one card over gloo: not a "
                 f"scaling measurement", **grid, "card": card}}))
+    print(json.dumps({"finish": {
+        "params": "12a/12d paper_params(); 12b paper_params(beta_bits=64); "
+                  "12c boot_params(logN=4, beta_bits=64)",
+        "note": f"{GRID_RANKS} ranks share one card over gloo: not a "
+                f"scaling measurement", **finish, "card": card}}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -193,10 +193,12 @@ def _stage_input(session, params: HEParams, logq: int, logp: int,
                  n_slots: int):
     """A metadata-only input handle for one stage's trace: its words lie
     on the meta device, which allocates nothing (stitching replaces the
-    input with a node ref, so they are never read)."""
+    input with a node ref, so they are never read), in the params' word
+    type, as the reference's placeholder is."""
     from repro_torch.client.handles import CipherHandle
-    z = torch.zeros((params.N, params.qlimbs(logq)), dtype=torch.int32,
-                    device="meta")
+    z = torch.zeros((params.N, params.qlimbs(logq)),
+                    dtype=torch.int32 if params.beta_bits == 32
+                    else torch.int64, device="meta")
     return CipherHandle(session, "input",
                         ct=Ciphertext(ax=z, bx=z, logq=logq, logp=logp,
                                       n_slots=n_slots))

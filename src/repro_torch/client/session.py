@@ -29,7 +29,12 @@ it encrypts and decrypts; its server may serve another device (an
 ``HEFrontend`` serves from the host), and the session moves a
 ciphertext to the server's device explicitly when it submits one
 (:meth:`to_server`) and back to its own when it decrypts. A bootstrap
-plan encodes its diagonals on the server's device.
+plan encodes its diagonals on the server's device. The session holds one
+``PipelineConfig`` (:attr:`cfg`), built from its server's ``use_kernels``,
+and runs keygen, encryption, decryption and the Galois keygens through
+it, where the reference's session takes its config's default (no
+kernels): so a session at β = 2^64 runs with ``use_kernels=False``, and
+``use_kernels=True`` there raises when the session is built.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from repro_torch.core.cipher import Ciphertext
 from repro_torch.core.context import resolve_device
 from repro_torch.core.keys import keygen
 from repro_torch.core.params import HEParams
+from repro_torch.core.rns import PipelineConfig, kernels_on
 from repro_torch.core.rotate import conj_keygen, rot_keygen
 
 __all__ = ["CipherFuture", "HESession"]
@@ -94,6 +100,8 @@ class HESession:
         one (batch / server knobs then live on that server).
     batch, **server_kwargs: forwarded to the built HEServer (on
         `device`; max_age_s, overlap, schedule, use_kernels, ...).
+        `use_kernels` (the built server's, or the given server's) also
+        sets the session's own config; at β = 2^64 it must be False.
     grid: a HostGrid whose rank 0 this is, forwarded to the built
         HEServer (`HEServer(grid=)`: tables, keys and every step spread
         over the model ranks, which run `hserve.serve_follower`); the
@@ -109,12 +117,16 @@ class HESession:
                  auto_keys: bool = True, grid=None, **server_kwargs):
         self.params = params
         self.device = resolve_device(device)
+        use_kernels = server_kwargs.get("use_kernels", True) \
+            if server is None else getattr(server, "use_kernels", True)
+        self.cfg = PipelineConfig(use_kernels=kernels_on(use_kernels,
+                                                         params))
         if pk is None:
             if sk is not None or evk is not None:
                 raise ValueError(
                     "pass all of (sk, pk, evk) or none of them")
             sk, pk, evk = keygen(params, seed=0 if seed is None else seed,
-                                 device=self.device)
+                                 cfg=self.cfg, device=self.device)
         self.sk, self.pk, self.evk = sk, pk, evk
         if server is None:
             from repro_torch.hserve import HEServer
@@ -176,7 +188,8 @@ class HESession:
             self._enc_seed += 1
         z = np.asarray(z, dtype=np.complex128)
         return self.input(
-            H.encrypt_message(z, self.pk, self.params, seed=seed))
+            H.encrypt_message(z, self.pk, self.params, seed=seed,
+                              cfg=self.cfg))
 
     def input(self, ct: Ciphertext) -> CipherHandle:
         """Wrap an existing ciphertext as a traced input handle."""
@@ -205,7 +218,7 @@ class HESession:
         if self.sk is None:
             raise ValueError("this session holds no secret key")
         return H.decrypt_message(x.to(self.sk.s.device), self.sk,
-                                 self.params)
+                                 self.params, self.cfg)
 
     # ---- execution -------------------------------------------------------
 
@@ -414,10 +427,11 @@ class HESession:
         for req in sorted(requires):
             if req[0] == "rot" and req[1] not in cache.rotation_amounts:
                 cache.add_rot_key(req[1], rot_keygen(
-                    self.params, self.sk, req[1], device=self.device))
+                    self.params, self.sk, req[1], cfg=self.cfg,
+                    device=self.device))
             elif req[0] == "conj" and not cache.has_conj_key:
-                cache.add_conj_key(
-                    conj_keygen(self.params, self.sk, device=self.device))
+                cache.add_conj_key(conj_keygen(
+                    self.params, self.sk, cfg=self.cfg, device=self.device))
 
     def ensure_rotation_keys(self, rs) -> None:
         """Convenience for raw-op callers: load rotation keys for the

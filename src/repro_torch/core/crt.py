@@ -20,6 +20,11 @@ The iCRT kernel's own formulation, column sums with a running carry, is
 not a strategy: its plain version (kernels/icrt/ref.py) reaches it through
 ``_icrt(..., _accum_columns)``.
 
+Split at the cross-prime sum (:func:`icrt_partial`, summed over shards of
+the primes, then :func:`icrt_finish`), every strategy at either β gives
+the same words too: "matmul" at β = 2^32 leaves its (lo, hi) column
+halves, the others 32-bit column sums of the accumulator.
+
 Words in and out are the port's stored words at either β
 (:mod:`repro_torch.core.wordops`), int64 inside. At β = 2^64 the routing
 is the reference's at ``uint64``: the wide accumulators of CRT "matmul",
@@ -176,76 +181,142 @@ def _icrt(r, primes, inv_P, inv_P_shoup, pdivp, P_limbs, P_half, p_inv_f64,
 
 def icrt_partial(r: torch.Tensor, primes: torch.Tensor, inv_P: torch.Tensor,
                  inv_P_shoup: torch.Tensor, pdivp: torch.Tensor,
-                 p_inv_f64: torch.Tensor
-                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                 p_inv_f64: torch.Tensor, *, strategy: str = "matmul",
+                 accum_limbs: int | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor]:
     """iCRT up to the cross-prime sum, over the primes of one shard.
 
-    r: (np_s, N) residues of the shard's primes; the tables are the rows
-    of those primes in the tables of the whole product P (np_s may be 0).
-    Returns (lo, hi, qsum):
+    r: (np_s, N) residues of the shard's primes, stored words of either β;
+    the tables are the rows of those primes in the tables of the whole
+    product P (np_s may be 0). Every strategy sums the same integer
+    Σ_j temp_j·(P/p_j) over the shard's primes; they differ in how, and so
+    in the form of the sum they leave. Returns (lo, hi, qsum):
 
-      lo, hi  int64 (N, PL): column k's sum Σ_j temp_j·pdivp[j, k] over
-              the shard's primes as lo + hi·2^32 with lo < 2^32 (the
-              canonical pair);
-      qsum    f64 (N,): Σ_j temp_j·p_inv_j, summed over j in order, each
-              product and each sum rounded (no fused multiply-add), with
-              no floor.
+      "matmul" at β = 2^32 (the split kernels' form):
+        lo, hi  int64 (N, PL): column k's sum Σ_j temp_j·pdivp[j, k] as
+                lo + hi·2^32 with lo < 2^32 (the canonical pair); the sum
+                is Σ_k (lo_k + hi_k·2^32)·β^k;
+      "acc3" (and "matmul" at β = 2^64, which runs as acc3, as in
+        :func:`icrt`): each (n, k)'s three-word sum a0 + a1·β + a2·β² of
+        Σ_j temp_j·pdivp[j, k], its words placed at limbs k, k + 1 and
+        k + 2 and not carried;
+      "naive": the shard's BigInt accumulator (paper Algo 5), A limbs;
 
-    Summing these over the shards of P's primes (in any grouping) and
-    calling :func:`icrt_finish` gives :func:`icrt`'s words ("matmul",
-    β = 2^32). Bounds, with np ≤ 122 and p < 2^31: temp_j < 2^31 and a
-    pdivp word < 2^32, so a product is below 2^63; its low halves sum
-    below 122·2^32 < 2^39 and its high halves below 122·2^31 < 2^38. So
-    lo < 2^32 and hi < 2^38 + 2^7 here, and after a sum over g shards lo <
-    g·2^32 and hi < 2^38 + g·2^7: far below 2^63 for any g < 2^30.
+      for "acc3" and "naive", lo is the sum as 32-bit column sums, int64
+      (N, A·β/2^32) with A = `accum_limbs` (the width of P_limbs): column
+      c weighs 2^(32c); a 64-bit word is split into its two halves, at
+      columns 2k and 2k + 1. hi is None.
+      qsum  f64 (N,): Σ_j temp_j·p_inv_j, summed over j in order, each
+            product and each sum rounded (no fused multiply-add), with no
+            floor.
+
+    Summing these over the shards of P's primes (in any grouping, the
+    same strategy on every shard) and calling :func:`icrt_finish` gives
+    :func:`icrt`'s words. Bounds on a column after a sum over g shards,
+    with np ≤ 122 primes below 2^31 at β = 2^32 and np ≤ 61 below 2^60
+    at β = 2^64:
+
+      matmul: temp_j < 2^31 and a pdivp word < 2^32, so a product is
+        below 2^63; its low halves sum below 122·2^32 < 2^39 and its high
+        halves below 122·2^31 < 2^38. So lo < 2^32 and hi < 2^38 + 2^7 on
+        one shard, and lo < g·2^32 and hi < g·(2^38 + 2^7) after g;
+      acc3: a0 and a1 are words; a2 counts the carries out of two words
+        of a sum below np·β² (β = 2^32: below 2^7; β = 2^64: below 2^6).
+        A 32-bit column takes one half of each of at most three words,
+        so it is below 3·2^32 < 2^34, and below g·2^34 after g;
+      naive: a column is a half of a canonical limb, below 2^32, and
+        below g·2^32 after g;
+
+    each far below 2^62, where :func:`icrt_finish`'s carry stays exact in
+    int64, for any g < 2^27. The shard's sum itself is below the whole
+    sum, which is below β^A, so the columns past A·β/2^32 are zero and
+    are not kept.
     """
-    if word_bits(r) != 32:
-        raise ValueError("icrt_partial takes β = 2^32 words")
+    bits = word_bits(r)
+    if strategy not in _ACCUM:
+        raise ValueError(f"unknown iCRT strategy {strategy!r}")
+    if bits == 64 and strategy == "matmul":
+        strategy = "acc3"
     p = wide(primes)[:, None]
     temp = shoup_modmul(wide(r), wide(inv_P)[:, None],
-                        wide(inv_P_shoup)[:, None], p)
+                        wide(inv_P_shoup)[:, None], p, bits)
     pd = wide(pdivp)
     N, PL = r.shape[1], pd.shape[1]
-    lo = torch.zeros((N, PL), dtype=torch.int64, device=r.device)
-    hi = torch.zeros_like(lo)
     qsum = torch.zeros(N, dtype=torch.float64, device=r.device)
     for j in range(temp.shape[0]):
-        prod = temp[j][:, None] * pd[j][None, :]       # < 2^63
-        lo += prod & M32
-        hi += prod >> 32
         qsum = qsum + temp[j].double() * p_inv_f64[j]
-    hi += lo >> 32
-    return lo & M32, hi, qsum
+    if strategy == "matmul":
+        lo = torch.zeros((N, PL), dtype=torch.int64, device=r.device)
+        hi = torch.zeros_like(lo)
+        for j in range(temp.shape[0]):
+            prod = temp[j][:, None] * pd[j][None, :]       # < 2^63
+            lo += prod & M32
+            hi += prod >> 32
+        hi += lo >> 32
+        return lo & M32, hi, qsum
+    if accum_limbs is None:
+        raise ValueError(f"iCRT {strategy!r} partials need accum_limbs")
+    if strategy == "acc3":
+        a2 = a1 = a0 = torch.zeros((N, PL), dtype=torch.int64,
+                                   device=r.device)
+        for j in range(temp.shape[0]):
+            a2, a1, a0 = acc3_add_product(a2, a1, a0, temp[j][:, None],
+                                          pd[j][None, :], bits)
+        cols = sum(_halves(_placed(a, k, accum_limbs), bits)
+                   for k, a in enumerate((a0, a1, a2)))
+    else:
+        cols = _halves(_accum_naive(temp, pd, accum_limbs, bits), bits)
+    return cols, None, qsum
 
 
-def icrt_finish(lo: torch.Tensor, hi: torch.Tensor, qsum: torch.Tensor,
-                P_limbs: torch.Tensor, P_half: torch.Tensor,
-                out_limbs: int) -> torch.Tensor:
+def _halves(limbs: torch.Tensor, bits: int) -> torch.Tensor:
+    """(N, A) words of β = 2^bits -> (N, A·bits/32) 32-bit columns: a
+    64-bit word's low half at column 2k, its high half at 2k + 1."""
+    if bits == 32:
+        return limbs
+    N, A = limbs.shape
+    return torch.stack([limbs & M32, (limbs >> 32) & M32], -1).reshape(
+        N, 2 * A)
+
+
+def icrt_finish(lo: torch.Tensor, hi: torch.Tensor | None,
+                qsum: torch.Tensor, P_limbs: torch.Tensor,
+                P_half: torch.Tensor, out_limbs: int) -> torch.Tensor:
     """iCRT after the cross-prime sum: (lo, hi, qsum) summed over every
     shard of P's primes (see :func:`icrt_partial`) -> (N, out_limbs)
-    centered two's complement, the words of :func:`icrt`.
+    centered two's complement, the words of :func:`icrt`, of the word
+    size of P_limbs.
 
-    lo goes to column k and hi to column k + 1 of the accumulator, which
-    is carried; s = ⌊qsum⌋ and :func:`finalize_accum` do the rest. The f64
-    quotient is exact only through the ±1 ladder there: qsum estimates
-    Σ_j temp_j/p_j, a sum of np ≤ 122 terms each in [0, 1). Each 1/p_j is
-    rounded (relative error 2^-53), each product and each partial sum
-    (below 2^7, so an error of at most 2^-46 each) too, and a sum across
-    g shards adds g − 1 more roundings of the same size: the error stays
-    below 2^-37 whatever the grouping and order, far below 1. So ⌊qsum⌋ is
-    the true quotient or one off it in either direction, even where the
-    sum lies within 2^-40 of an integer, and the ladder makes the result
-    exact. The sum across ranks may round otherwise than one rank's: the
-    words do not change.
+    The matmul form: lo goes to column k and hi to column k + 1 of the
+    accumulator (β = 2^32). The column form (hi None): lo's 32-bit
+    columns. Either is carried into limbs; s = ⌊qsum⌋ and
+    :func:`finalize_accum` do the rest. The f64 quotient is exact only
+    through the ±1 ladder there: qsum estimates Σ_j temp_j/p_j, a sum of
+    np ≤ 122 terms each in [0, 1) (temp_j < p_j < 2^60 at either β).
+    Each 1/p_j is rounded (relative error 2^-53), each product and each
+    partial sum (below 2^7, so an error of at most 2^-46 each) too, and a
+    sum across g shards adds g − 1 more roundings of the same size: the
+    error stays below 2^-37 whatever the grouping and order, far below 1.
+    So ⌊qsum⌋ is the true quotient or one off it in either direction, even
+    where the sum lies within 2^-40 of an integer, and the ladder makes
+    the result exact. The sum across ranks may round otherwise than one
+    rank's: the words do not change.
     """
-    N, PL = lo.shape
-    cols = torch.zeros((N, P_limbs.shape[0]), dtype=torch.int64,
-                       device=lo.device)
-    cols[:, :PL] += lo
-    cols[:, 1: PL + 1] += hi
+    bits = word_bits(P_limbs)
+    A = P_limbs.shape[0]
+    N = lo.shape[0]
+    if hi is not None:
+        PL = lo.shape[1]
+        cols = torch.zeros((N, A), dtype=torch.int64, device=lo.device)
+        cols[:, :PL] += lo
+        cols[:, 1: PL + 1] += hi
+        accum = _carry_columns(cols)
+    else:
+        limbs = _carry_columns(lo)          # 32-bit limbs, < β^A
+        accum = limbs if bits == 32 else \
+            limbs[:, 0::2] | (limbs[:, 1::2] << 32)
     s = torch.floor(qsum).long()
-    return finalize_accum(_carry_columns(cols), s, P_limbs, P_half,
-                          out_limbs)
+    return finalize_accum(accum, s, P_limbs, P_half, out_limbs, bits=bits)
 
 
 def _carry_columns(cols: torch.Tensor) -> torch.Tensor:

@@ -35,14 +35,19 @@ the reference's is under GSPMD with np on "model" and the batch on "data":
     iNTT) runs on the rank's primes through the same kernels; an empty
     shard skips them without a launch;
   - ``from_eval`` runs ``icrt_partial`` on the folded batch, then ONE
-    all-reduce each of ``lo``, ``hi`` and ``qsum`` over the model group
-    (three per reduction, as ``he_expected_collectives`` counts), then
-    ``icrt_finish``; the glue after iCRT runs on every model rank on the
-    same words (replicated, as under GSPMD). With ``reduce_scatter_icrt``
-    ``lo``/``hi`` are reduce-scattered over their column axis and
-    all-gathered before the finish (``qsum`` all-reduced): the same words.
-  - Only iCRT "matmul" at β = 2^32 is additive in that form: across ranks
-    ``acc3``/``naive`` and β = 2^64 raise ValueError (ROADMAP A7c).
+    all-reduce each of its column sums and of ``qsum`` over the model
+    group, then ``icrt_finish``; the glue after iCRT runs on every model
+    rank on the same words (replicated, as under GSPMD). The columns'
+    form is the iCRT strategy's (``core.crt.icrt_partial``): "matmul" at
+    β = 2^32 leaves ``lo`` and ``hi`` (three all-reduces per reduction,
+    the reference's count in ``he_expected_collectives``), "acc3",
+    "naive" and β = 2^64 one tensor of 32-bit columns as wide as the
+    accumulator (two). With ``use_kernels`` every strategy name takes
+    the split kernels (``icrt_partial_op``, ``icrt_finish_op``, the
+    matmul form), as a one-device step takes the fused kernel whatever
+    the name. With ``reduce_scatter_icrt`` the column sums are
+    reduce-scattered over their column axis and all-gathered before the
+    finish (``qsum`` all-reduced): the same words.
 
 The words equal the one-rank step's bit for bit. With no grid, or a grid
 of model size 1, the code path is the one-device step's exactly.
@@ -116,7 +121,7 @@ __all__ = [
     "HEStatic", "he_static", "region_tables", "evk_tables",
     "runtime_tables", "shard_tables", "scatter_batch", "gather_batch",
     "he_table_specs", "he_input_specs", "StageFns", "make_stage_fns",
-    "check_operands", "check_grid", "make_keyswitch_step",
+    "check_operands", "make_keyswitch_step",
     "make_he_mul_step",
 ]
 
@@ -138,11 +143,6 @@ _KERNEL_CRT = ("acc3", "mod2", "mod4")
 # rows); P_limbs and P_half_limbs belong to the whole product P.
 PRIME_ROW_KEYS = tuple(k for k in REGION_TABLE_KEYS
                        if k not in ("P_limbs", "P_half_limbs"))
-
-# the ROADMAP item of what does not run across ranks yet
-_GRID_TODO = ("across ranks only iCRT \"matmul\" at β = 2^32 is additive "
-              "in the split form; {what} is ROADMAP A7c")
-
 
 @dataclasses.dataclass(frozen=True)
 class HEStatic:
@@ -454,16 +454,19 @@ def make_stage_fns(device: str | torch.device = "cuda", *,
 
     `grid` (a HostGrid on `device`) of model size g > 1 makes the bundle
     one rank's part: the stages take the rank's prime rows, and iCRT sums
-    its partial sums across the model group (see the module docstring);
-    `reduce_scatter_icrt` moves lo/hi as reduce-scatter + all-gather. With
-    no grid, or g = 1, both are ignored and the bundle is the one-device
-    one.
+    its partial sums, in `icrt_strategy`'s form, across the model group
+    (see the module docstring); `reduce_scatter_icrt` moves the column
+    sums as reduce-scatter + all-gather. With no grid, or g = 1, both are
+    ignored and the bundle is the one-device one. An unknown strategy
+    name raises ValueError here, on a grid or not.
 
     `stage_timer` (a `repro_torch.obs.StageTimer`) fences and clocks
     every stage call in the paper's Fig. 3 taxonomy — crt, ntt (forward
     and inverse), modmul (Montgomery and Shoup pointwise), icrt. The
     stages compute the same words either way."""
     dev = resolve_device(device)
+    if icrt_strategy not in ("matmul", "acc3", "naive"):
+        raise ValueError(f"unknown iCRT strategy {icrt_strategy!r}")
     if stage_timer is None:
         def timed(stage, thunk):
             return thunk()
@@ -472,9 +475,6 @@ def make_stage_fns(device: str | torch.device = "cuda", *,
     if grid is not None and grid.model > 1:
         if grid.device != dev:
             raise ValueError(f"grid rank on {grid.device}, stages on {dev}")
-        if icrt_strategy != "matmul":
-            raise ValueError(_GRID_TODO.format(
-                what=f"iCRT {icrt_strategy!r}"))
     else:
         grid = None
 
@@ -490,21 +490,23 @@ def make_stage_fns(device: str | torch.device = "cuda", *,
                                            use_kernels))
 
     def icrt_across(r, t, out_limbs):
-        if word_bits(r) != 32:
-            raise ValueError(_GRID_TODO.format(what="β = 2^64"))
         B, _, N = r.shape
         f = _fold_np(r)
         if use_kernels:
             lo, hi, qsum = icrt_partial_op(f, t)
         else:
-            lo, hi, qsum = icrt_partial(f, t["primes"], t["inv_P"],
-                                        t["inv_P_shoup"], t["pdivp"],
-                                        t["p_inv_f64"])
-        if reduce_scatter_icrt:
-            lo, hi = _rs_ag(grid, lo), _rs_ag(grid, hi)
-        else:
-            comm.all_reduce(grid, lo)
-            comm.all_reduce(grid, hi)
+            lo, hi, qsum = icrt_partial(
+                f, t["primes"], t["inv_P"], t["inv_P_shoup"], t["pdivp"],
+                t["p_inv_f64"], strategy=icrt_strategy,
+                accum_limbs=t["P_limbs"].shape[0])
+        def summed(cols):
+            if cols is None:                # hi, in the column form
+                return None
+            if reduce_scatter_icrt:
+                return _rs_ag(grid, cols)
+            return comm.all_reduce(grid, cols)
+
+        lo, hi = summed(lo), summed(hi)
         comm.all_reduce(grid, qsum)
         if use_kernels:
             out = icrt_finish_op(lo, hi, qsum, t, out_limbs)
@@ -601,12 +603,6 @@ def make_keyswitch_step(st: HEStatic, sf: StageFns):
     return ks
 
 
-def check_grid(st: HEStatic, grid) -> None:
-    """Refuse a word mode that does not run across ranks yet."""
-    if grid is not None and grid.model > 1 and st.params.beta_bits != 32:
-        raise ValueError(_GRID_TODO.format(what="β = 2^64"))
-
-
 def make_he_mul_step(st: HEStatic, device: str | torch.device = "cuda", *,
                      grid=None,
                      crt_strategy: str = "matmul",
@@ -631,7 +627,6 @@ def make_he_mul_step(st: HEStatic, device: str | torch.device = "cuda", *,
     :func:`make_stage_fns`.
     """
     kernels_on(use_kernels, st.params)
-    check_grid(st, grid)
     logq, qlimbs = st.logq, st.qlimbs
     bits = st.params.beta_bits
     sf = make_stage_fns(device, grid=grid, crt_strategy=crt_strategy,

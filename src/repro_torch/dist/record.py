@@ -2,7 +2,8 @@
 of ``SHARD_MANIFEST.json``.
 
     PYTHONPATH=src python -m repro_torch.dist --record OUT.json \\
-        [--grid 2x4] [--device cpu|cuda] [--manifest SHARD_MANIFEST.json]
+        [--grid 2x4] [--device cpu|cuda] [--manifest SHARD_MANIFEST.json] \\
+        [--icrt-strategy matmul|acc3|naive] [--beta-bits 32|64]
 
 (``dist/__main__.py`` calls :func:`main`; the rank function lives here,
 where the spawned ranks can import it.) Spawns the grid
@@ -19,7 +20,10 @@ has no such target is not served there). The same cells run on one rank
   - ``collectives``: the measured counts, wire bytes by kind and
     ``total_bytes`` of the step's own log on rank 0 (every rank's must
     agree), and ``group_axes``;
-  - ``expected``: ``dist.sharding.he_expected_collectives``;
+  - ``expected``: ``dist.sharding.he_expected_collectives`` for the
+    run's iCRT strategy and word size (the manifest's cells: "matmul" at
+    the manifest's β = 2^32; the other forms' predictions are the
+    port's own);
   - ``fusions``: the port's own counter in the place of XLA's fused
     kernels: the CUDA kernel launches of one step on this rank (0 on the
     CPU, where the wrappers run their plain versions);
@@ -49,6 +53,7 @@ from repro_torch.analysis.manifest import (
 from repro_torch.core import bigint
 from repro_torch.core.keys import keygen
 from repro_torch.core.params import HEParams, test_params
+from repro_torch.core.rns import PipelineConfig
 from repro_torch.core.rotate import conj_keygen, rot_keygen
 from repro_torch.dist import comm
 from repro_torch.dist.he_pipeline import he_static, scatter_batch
@@ -87,23 +92,39 @@ def _operands(op: str, st, batch: int, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     names = (["ax1", "bx1"] + (["ax2", "bx2"] if OPS[op] == 2 else [])
              + (["pt"] if op in ("mul_plain", "add_plain") else []))
-    return {k: bigint.mask_bits(torch.from_numpy(rng.integers(
-        0, 1 << 32, size=(batch, st.N, st.qlimbs), dtype=np.uint64
-    ).astype(np.uint32).view(np.int32)), st.logq) for k in names}
+    shape = (batch, st.N, st.qlimbs)
+
+    def draw() -> np.ndarray:
+        if st.dtype == torch.int32:
+            return rng.integers(0, 1 << 32, size=shape, dtype=np.uint64
+                                ).astype(np.uint32).view(np.int32)
+        return rng.integers(0, 1 << 64, size=shape, dtype=np.uint64
+                            ).view(np.int64)
+
+    return {k: bigint.mask_bits(torch.from_numpy(draw()), st.logq)
+            for k in names}
 
 
-def record_rank(grid, params: HEParams, cells: list, batch: int) -> dict:
+def _kernels(params: HEParams, dev) -> bool:
+    """The kernels run on the card at β = 2^32; β = 2^64 has none."""
+    return dev.type == "cuda" and params.beta_bits == 32
+
+
+def record_rank(grid, params: HEParams, cells: list, batch: int,
+                icrt_strategy: str = "matmul") -> dict:
     """One rank's measurement of every cell (see the module docstring)."""
     dev = grid.device
-    sk, _, evk = keygen(params, seed=0, device=dev)
+    cfg = PipelineConfig(use_kernels=_kernels(params, dev))
+    sk, _, evk = keygen(params, seed=0, cfg=cfg, device=dev)
     rots = sorted({1, *slot_sum_rotations(params.n_slots_max)})
     cache = TableCache(params, evk,
-                       {r: rot_keygen(params, sk, r, device=dev)
+                       {r: rot_keygen(params, sk, r, cfg=cfg, device=dev)
                         for r in rots},
-                       conj_keygen(params, sk, device=dev), device=dev,
-                       grid=grid)
+                       conj_keygen(params, sk, cfg=cfg, device=dev),
+                       device=dev, grid=grid)
     engine = OpEngine(params, dev, cache, grid=grid,
-                      use_kernels=dev.type == "cuda")
+                      use_kernels=_kernels(params, dev),
+                      icrt_strategy=icrt_strategy)
     out = {}
     for i, (op, logq, extra) in enumerate(cells):
         st = he_static(params, logq)
@@ -129,10 +150,13 @@ def record_rank(grid, params: HEParams, cells: list, batch: int) -> dict:
     return out
 
 
-def _cell(op, logq, grid, params, batch, meas) -> dict:
+def _cell(op, logq, grid, params, batch, meas, icrt_strategy,
+          use_kernels) -> dict:
     s = meas["summary"]
     exp = he_expected_collectives(op, grid, params, logq, batch=batch,
-                                  n_slots=params.n_slots_max)
+                                  n_slots=params.n_slots_max,
+                                  icrt_strategy=icrt_strategy,
+                                  use_kernels=use_kernels)
     return {"collectives": {"counts": s["counts"], "bytes": s["bytes"],
                             "total_bytes": s["total_bytes"]},
             "expected": {"counts": dict(exp["counts"]),
@@ -143,20 +167,25 @@ def _cell(op, logq, grid, params, batch, meas) -> dict:
             "memory": {"peak_bytes": meas["peak_bytes"]}}
 
 
-def record(shape=(2, 4), device="cuda", manifest=DEFAULT_MANIFEST) -> dict:
+def record(shape=(2, 4), device="cuda", manifest=DEFAULT_MANIFEST,
+           icrt_strategy: str = "matmul", beta_bits=None) -> dict:
     """The record of the 1x1 cells (in this process) and of the `shape`
-    grid's (spawned), at `manifest`'s params, levels and batch."""
+    grid's (spawned), at `manifest`'s params (its β unless `beta_bits`
+    says otherwise), levels and batch, with `icrt_strategy`."""
     ref = json.loads(Path(manifest).read_text())
-    pp = ref["params"]
+    pp = dict(ref["params"])
+    if beta_bits is not None:
+        pp["beta_bits"] = int(beta_bits)
     params = test_params(logN=pp["logN"], beta_bits=pp["beta_bits"],
                          logQ=pp["logQ"], logp=pp["logp"])
     batch, levels = ref["batch"], ref["levels"]
     cells = served_cells(params, levels)
     one = single_grid(device)
-    runs = {"1x1": (one, record_rank(one, params, cells, batch))}
+    runs = {"1x1": (one, record_rank(one, params, cells, batch,
+                                     icrt_strategy))}
     D, M = shape
     ranks = spawn_grid(record_rank, data=D, model=M, device=device,
-                       args=(params, cells, batch))
+                       args=(params, cells, batch, icrt_strategy))
     for r, res in enumerate(ranks[1:], 1):
         for key, meas in res.items():
             if meas["summary"]["counts"] != ranks[0][key]["summary"][
@@ -168,6 +197,7 @@ def record(shape=(2, 4), device="cuda", manifest=DEFAULT_MANIFEST) -> dict:
                     backend=None)
     runs[grid.name] = (grid, ranks[0])
     out = {"schema": SCHEMA_VERSION, "params": pp, "batch": batch,
+           "icrt_strategy": icrt_strategy,
            "levels": levels,
            "meshes": {name: list(g.shape) for name, (g, _) in runs.items()},
            "tolerances": ref["tolerances"],
@@ -179,7 +209,8 @@ def record(shape=(2, 4), device="cuda", manifest=DEFAULT_MANIFEST) -> dict:
     for name, (g, res) in runs.items():
         for op, logq, _ in cells:
             out["cells"][cell_key(op, logq, name)] = _cell(
-                op, logq, g, params, batch, res[(op, logq)])
+                op, logq, g, params, batch, res[(op, logq)], icrt_strategy,
+                _kernels(params, one.device))
     return out
 
 
@@ -194,9 +225,16 @@ def main(argv=None) -> None:
     ap.add_argument("--manifest", default=str(DEFAULT_MANIFEST),
                     help="the manifest whose params, levels and batch "
                          "to run at")
+    ap.add_argument("--icrt-strategy", default="matmul",
+                    choices=["matmul", "acc3", "naive"],
+                    help="iCRT strategy of every step (its partial sums' "
+                         "form decides the all-reduces)")
+    ap.add_argument("--beta-bits", type=int, choices=[32, 64], default=None,
+                    help="word size (default the manifest's)")
     args = ap.parse_args(argv)
     shape = tuple(int(v) for v in args.grid.split("x"))
-    rec = record(shape, args.device, args.manifest)
+    rec = record(shape, args.device, args.manifest, args.icrt_strategy,
+                 args.beta_bits)
     Path(args.record).write_text(json.dumps(rec, indent=1, sort_keys=True))
     n = sum(1 for c in rec["cells"].values() if c["collectives"]["counts"])
     print(f"recorded {len(rec['cells'])} cells ({n} with collectives) on "

@@ -18,7 +18,9 @@ issues no collective-permute), and a shard can be empty; an empty shard
 still joins each of iCRT's all-reduces, with zeros.
 
 :func:`he_expected_collectives` is the reference's prediction of a served
-op's collective schedule, over the port's own iCRT tables.
+op's collective schedule, over the port's own iCRT tables, for iCRT's
+"matmul" form; for the column form of the other strategies and of
+β = 2^64 (:func:`icrt_form`) the prediction is the port's own.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 __all__ = ["data_axes", "he_limb_sharding", "he_eval_sharding",
-           "prime_rows", "mesh_collective_groups",
+           "prime_rows", "mesh_collective_groups", "icrt_form",
            "he_expected_collectives"]
 
 
@@ -102,20 +104,45 @@ def _slot_sum_rounds(n_slots: int) -> int:
     return rounds
 
 
-def he_expected_collectives(op: str, grid, params, logq: int, *,
-                            batch: int, n_slots: Optional[int] = None
-                            ) -> dict:
-    """Predicted collective schedule of one served (op, level) cell, with
-    the default "matmul" iCRT strategy: the reference's function over the
-    port's ``core.context.build_icrt_tables``.
+def icrt_form(icrt_strategy: str, beta_bits: int,
+              use_kernels: bool = False) -> str:
+    """The form of iCRT's partial sums across ranks
+    (``core.crt.icrt_partial``): "matmul" (lo and hi, the split kernels'
+    form, which every strategy name takes on the kernel path) or
+    "columns" (one tensor of 32-bit column sums: acc3, naive, and every
+    strategy at β = 2^64)."""
+    if icrt_strategy not in ("matmul", "acc3", "naive"):
+        raise ValueError(f"unknown iCRT strategy {icrt_strategy!r}")
+    if beta_bits == 32 and (use_kernels or icrt_strategy == "matmul"):
+        return "matmul"
+    return "columns"
 
-    Only iCRT's cross-prime accumulation communicates, as EXACTLY three
-    all-reduces over the model groups per reduction:
+
+def he_expected_collectives(op: str, grid, params, logq: int, *,
+                            batch: int, n_slots: Optional[int] = None,
+                            icrt_strategy: str = "matmul",
+                            use_kernels: bool = False) -> dict:
+    """Predicted collective schedule of one served (op, level) cell: with
+    the default "matmul" iCRT strategy at β = 2^32, the reference's
+    function over the port's ``core.context.build_icrt_tables``.
+
+    Only iCRT's cross-prime accumulation communicates. In the matmul form
+    (:func:`icrt_form`) it is EXACTLY three all-reduces over the model
+    groups per reduction:
 
       2 × int64[B_local·N, plimbs]   the column-sum halves lo and hi of
                                      Σ_j temp_j·(P/p_j) (the reference's
                                      two u64 accumulator halves);
       1 × f64[B_local·N]             the quotient estimate Σ temp_j/p_j.
+
+    In the column form (iCRT "acc3" or "naive" off the kernel path, and
+    every strategy at β = 2^64) it is two, and this part of the
+    prediction is the port's own (the reference's partitioner issues
+    other collectives for those strategies):
+
+      1 × int64[B_local·N, A·β/2^32] the 32-bit column sums of the
+                                     accumulator of A = accum_limbs words;
+      1 × f64[B_local·N]             the quotient estimate.
 
     Wire bytes follow the ring model (all-reduce = 2·S·(g−1)/g per rank);
     B_local is the per-data-rank batch (the full batch when it does not
@@ -124,6 +151,7 @@ def he_expected_collectives(op: str, grid, params, logq: int, *,
     collective-permutes below logQ; the port's split issues none.
     """
     from repro_torch.core.context import build_icrt_tables
+    form = icrt_form(icrt_strategy, params.beta_bits, use_kernels)
     g = grid.model
     dsize = grid.data
     b_local = batch // dsize if dsize and batch % dsize == 0 else batch
@@ -157,12 +185,25 @@ def he_expected_collectives(op: str, grid, params, logq: int, *,
                               params.np_region2(logq))):
         if not n_r:
             continue
-        plimbs = build_icrt_tables(params, npn).plimbs
-        one = 2 * ring(b_local * params.N * plimbs * 8) \
-            + ring(b_local * params.N * 8)
-        per_region.append({"reductions": n_r, "np": npn,
-                           "plimbs": plimbs, "bytes_per_reduction": one})
+        tabs = build_icrt_tables(params, npn)
+        plimbs = tabs.plimbs
+        row = b_local * params.N * 8
+        if form == "matmul":
+            one = 2 * ring(row * plimbs) + ring(row)
+            per_region.append({"reductions": n_r, "np": npn,
+                               "plimbs": plimbs,
+                               "bytes_per_reduction": one})
+        else:
+            columns = tabs.accum_limbs * params.beta_bits // 32
+            one = ring(row * columns) + ring(row)
+            per_region.append({"reductions": n_r, "np": npn,
+                               "plimbs": plimbs, "columns": columns,
+                               "bytes_per_reduction": one})
         total += n_r * one
-    return {"kinds": ["all-reduce"], "counts": {"all-reduce": 3 * n_red},
-            "wire_bytes": total, "n_reductions": n_red, "axis": "model",
-            "group_size": g, "per_region": per_region, "allowed": allowed}
+    per_red = 3 if form == "matmul" else 2
+    out = {"kinds": ["all-reduce"], "counts": {"all-reduce": per_red * n_red},
+           "wire_bytes": total, "n_reductions": n_red, "axis": "model",
+           "group_size": g, "per_region": per_region, "allowed": allowed}
+    if form != "matmul":
+        out["icrt_form"] = form
+    return out

@@ -71,7 +71,7 @@ from repro_torch.core.rotate import (
     automorphism_poly, conjugation_k, rotation_k,
 )
 from repro_torch.dist.he_pipeline import (
-    HEStatic, check_grid, check_operands, he_static, make_he_mul_step,
+    HEStatic, check_operands, he_static, make_he_mul_step,
     make_keyswitch_step, make_stage_fns,
 )
 from repro_torch.obs.stages import StageTimer
@@ -127,7 +127,6 @@ def make_he_rotate_step(st: HEStatic, device: str | torch.device, k: int,
 
     Serves both "rotate" (k = 5^r) and "conjugate" (k = 2N−1); rk is the
     Galois key as a table dict (``he_pipeline.evk_tables``)."""
-    check_grid(st, knobs.get("grid"))
     sf = make_stage_fns(device, **knobs)
     keyswitch = make_keyswitch_step(st, sf)
     auto_b = _make_automorphism_b(st, k)
@@ -145,7 +144,6 @@ def make_slot_sum_step(st: HEStatic, device: str | torch.device,
     slot: acc ← acc + rotate(acc, r) for r = 1, 2, 4, … — log₂(n) rounds,
     one key switch each. `rks` is a tuple of rotation-key dicts in
     slot_sum_rotations(n_slots) order."""
-    check_grid(st, knobs.get("grid"))
     sf = make_stage_fns(device, **knobs)
     keyswitch = make_keyswitch_step(st, sf)
     autos = [_make_automorphism_b(st, rotation_k(st.params, r))
@@ -232,7 +230,6 @@ def make_mul_plain_step(st: HEStatic, device: str | torch.device, **knobs):
     both components. np₁ covers 2N·q², the bound `core.heaan.he_mul_plain`
     uses, and iCRT reconstructs the exact product, so each item equals
     he_mul_plain bit for bit."""
-    check_grid(st, knobs.get("grid"))
     sf = make_stage_fns(device, **knobs)
     logq, qlimbs = st.logq, st.qlimbs
 

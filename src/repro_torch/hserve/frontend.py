@@ -34,15 +34,26 @@ FIFO order survive — and re-routes on the next poll. Ops are
 deterministic integer arithmetic, so a re-served batch is bitwise
 identical to the first attempt. With every worker dead and work still
 queued, :class:`NoLiveWorkersError` is raised (drain propagates it
-instead of spinning).
+instead of spinning); the batch that found no worker goes back to the
+queue first, so after ``revive_workers()`` polling on serves every request
+(the reference drops it).
 
 ``runtime.failures.FailureInjector(kill_worker_at={wid: n})`` drives
 worker death deterministically.
 
 This is the JAX package's ``hserve/frontend.py``. What differs:
-``worker_device`` (a device string, default "cuda") in place of ``mesh``
-and ``worker_devices``; a worker that fails its init raises
-:class:`WorkerDied` here, and the workers already started are closed;
+``worker_device`` (a device string, default "cuda") and ``grid`` in place
+of ``mesh``. The reference gives its workers a model mesh in two ways,
+and so does the port: in-process workers share the frontend's ``grid=``
+(a HostGrid of data size 1 whose rank 0 this process is; every worker
+holds its rows there and relays its steps, tagged with its ``wid``, to
+the other ranks, which run ``hserve.serve_follower``; ``close()`` ends
+them), and with ``transport="subprocess"`` each worker process is rank 0
+of its own ``(1, worker_devices)`` grid, its followers spawned beside it
+on its device (the init frame carries the grid's shape; killing the
+worker ends them, a respawn starts a new group). A worker that fails its
+init raises :class:`WorkerDied` here, and the workers already started are
+closed;
 each worker keeps its init's seconds and bytes and a log of its last
 batches' frame sizes and times (``frame_log``); :meth:`worker_stats`
 asks every live worker for its registry snapshot (its kernel launch
@@ -61,11 +72,12 @@ import torch
 
 from repro_torch.core.cipher import Ciphertext, EvalKey
 from repro_torch.core.params import HEParams
+from repro_torch.core.rns import kernels_on
 from repro_torch.hserve.queue import Batch
-from repro_torch.hserve.server import HEServer
+from repro_torch.hserve.server import HEServer, relay_stop
 from repro_torch.hserve.tables import PlainCache
 from repro_torch.hserve.transport import (
-    InProcTransport, SubprocessTransport, WorkerDied,
+    InProcTransport, SubprocessTransport, WorkerDied, words,
 )
 from repro_torch.hserve.worker import _KEY_FIELDS, WorkerEngine
 from repro_torch.runtime.monitor import Heartbeat
@@ -212,6 +224,7 @@ class WorkerHandle:
         self.init_s = 0.0
         self.init_bytes = 0
         self.init_send_s = 0.0
+        self.followers: List[int] = []     # a worker grid's follower pids
         self.spawned_at = time.perf_counter()
         self.frame_log: deque = deque(maxlen=256)
 
@@ -225,7 +238,8 @@ class WorkerHandle:
                 "pending": self.pending is not None,
                 "init_s": round(self.init_s, 6),
                 "init_bytes": self.init_bytes,
-                "init_send_s": round(self.init_send_s, 6)}
+                "init_send_s": round(self.init_send_s, 6),
+                "followers": list(self.followers)}
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
@@ -234,14 +248,14 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t if t.device.type == "cpu" else t.cpu()
 
 
-def _key_arrays(ek: EvalKey, prefix: str = "") -> Dict[str, torch.Tensor]:
-    return {prefix + f: _host(getattr(ek, f)) for f in _KEY_FIELDS}
+def _key_arrays(ek: EvalKey, prefix: str = "") -> Dict[str, object]:
+    return {prefix + f: words(_host(getattr(ek, f))) for f in _KEY_FIELDS}
 
 
 def _key_frames(evk: Optional[EvalKey], rot: Dict[int, EvalKey],
-                conj: Optional[EvalKey]) -> Dict[str, torch.Tensor]:
+                conj: Optional[EvalKey]) -> Dict[str, object]:
     """Flatten key material into init-frame array names."""
-    out: Dict[str, torch.Tensor] = {}
+    out: Dict[str, object] = {}
     if evk is not None:
         out.update(_key_arrays(evk, "evk."))
     for r, rk in rot.items():
@@ -265,6 +279,16 @@ class HEFrontend(HEServer):
     worker_device: the device every worker serves on (default "cuda"; a
         worker that cannot open it fails its init and this constructor
         raises — there is no fallback). "cpu" runs the plain versions.
+        With `grid`, the grid's device.
+    grid: a HostGrid of data size 1 whose rank 0 this process is (the
+        others run ``hserve.serve_follower``): the in-process workers
+        spread their tables, keys and steps over its model ranks. Needs
+        ``transport="inproc"``; `close()` ends the followers.
+    worker_devices: with ``transport="subprocess"``, the model ranks of
+        each worker process's own grid (the reference's knob): R > 1
+        spawns R − 1 followers beside each worker, on its device.
+    use_kernels: as HEServer's; at β = 2^64 pass False (True raises
+        here).
     injector: optional `runtime.failures.FailureInjector` whose
         `kill_worker_at` schedule this frontend consults after every
         dispatch (deterministic worker death for tests/benches).
@@ -284,7 +308,8 @@ class HEFrontend(HEServer):
                  rot_keys: Optional[Dict[int, EvalKey]] = None,
                  conj_key: Optional[EvalKey] = None, *,
                  workers: int = 2, transport: str = "inproc",
-                 worker_device: str = "cuda", batch: int = 8,
+                 worker_device: str = "cuda", grid=None,
+                 worker_devices: int = 1, batch: int = 8,
                  use_kernels: bool = True,
                  max_age_s: Optional[float] = None,
                  adaptive_target: bool = True,
@@ -302,6 +327,28 @@ class HEFrontend(HEServer):
         if transport not in ("inproc", "subprocess"):
             raise ValueError(f"unknown transport {transport!r} "
                              "(inproc | subprocess)")
+        kernels_on(use_kernels, params)
+        grid = grid if grid is not None and grid.model > 1 else None
+        if grid is not None:
+            if transport != "inproc":
+                raise ValueError(
+                    "grid= spreads in-process workers over a model grid; "
+                    "subprocess workers take worker_devices= (each its "
+                    "own grid)")
+            if grid.rank != 0 or grid.data != 1:
+                raise ValueError(
+                    f"HEFrontend(grid=) runs on rank 0 of a grid of data "
+                    f"size 1; got rank {grid.rank} of {grid.name}")
+            worker_device = str(grid.device)
+        if worker_devices < 1 or (worker_devices > 1
+                                  and transport != "subprocess"):
+            raise ValueError(
+                f"worker_devices={worker_devices}: a worker process's own "
+                f"grid needs transport='subprocess' (in-process workers "
+                f"take grid=)")
+        self.grid = grid
+        self._open = grid is not None
+        self.worker_devices = worker_devices
         self.cache = FrontendCatalog(params, evk, rot_keys, conj_key,
                                      plain_cache_mib=plain_cache_mib)
         self.engine = None           # no local engine — workers own them
@@ -357,7 +404,7 @@ class HEFrontend(HEServer):
                     clock=clock, heartbeat_path=hb_path,
                     heartbeat_interval=self.heartbeat_interval,
                     heartbeat_clock=clock, use_kernels=self.use_kernels,
-                    **self.engine_knobs)
+                    grid=self.grid, **self.engine_knobs)
                 w = WorkerHandle(wid, InProcTransport(eng),
                                  heartbeat_path=hb_path)
                 w.init_s = time.perf_counter() - t0
@@ -386,6 +433,7 @@ class HEFrontend(HEServer):
         init = {"type": "init",
                 "params": dataclasses.asdict(self.params),
                 "device": w.transport.device,
+                "grid": [1, self.worker_devices],
                 "wid": w.wid,
                 "has_evk": cat._ek is not None,
                 "rot_rs": sorted(cat._rot),
@@ -404,6 +452,7 @@ class HEFrontend(HEServer):
         w.init_s = time.perf_counter() - w.spawned_at
         if head.get("type") != "ok":
             raise WorkerDied(f"worker {w.wid} failed init: {head}")
+        w.followers = list(head.get("followers", []))
 
     def _alive_workers(self) -> List[WorkerHandle]:
         return [w for w in self.workers if w.alive]
@@ -512,7 +561,8 @@ class HEFrontend(HEServer):
         """{wid: registry snapshot} of every live worker, each quiesced
         first; the snapshot's "kernels" source holds the worker
         process's kernel launch counts, which `reset_launches` sets to 0
-        after reading."""
+        after reading (with a worker grid's collective logs, the
+        snapshot's "grid" source)."""
         out: Dict[int, dict] = {}
         for w in self._alive_workers():
             if not self._quiesce(w):
@@ -572,14 +622,15 @@ class HEFrontend(HEServer):
                           "logps": [c.logp for c in r.cts]}
                          for r in b.requests[:b.n_valid]]}
         tr = self._tracer
+        arrays = {k: words(v) for k, v in b.arrays.items()}
         try:
             if tr is not None:
                 with tr.span("dispatch", cat="lifecycle", lane="server",
                              args={"op": b.op, "batch": b.size,
                                    "worker": w.wid}):
-                    w.transport.send(head, b.arrays)
+                    w.transport.send(head, arrays)
             else:
-                w.transport.send(head, b.arrays)
+                w.transport.send(head, arrays)
         except WorkerDied:
             self._on_death(w, "transport")
             return False
@@ -624,8 +675,11 @@ class HEFrontend(HEServer):
                 ts=p.t0, dur=wall,
                 args={"op": p.batch.op, "logq": p.batch.logq,
                       "worker": w.wid, "n_valid": p.batch.n_valid})
-        ax = torch.from_numpy(arrays["ax"].view("int32"))
-        bx = torch.from_numpy(arrays["bx"].view("int32"))
+        # the params' stored words (HEStatic.dtype): int32 bit patterns at
+        # β = 2^32, int64 at β = 2^64, whatever the frame's label
+        word = "int32" if self.params.beta_bits == 32 else "int64"
+        ax = torch.from_numpy(arrays["ax"].view(word))
+        bx = torch.from_numpy(arrays["bx"].view(word))
         outs = [Ciphertext(ax=ax[i], bx=bx[i], logq=int(m["logq"]),
                            logp=int(m["logp"]), n_slots=int(m["n_slots"]))
                 for i, m in enumerate(head["outs"])]
@@ -666,7 +720,13 @@ class HEFrontend(HEServer):
             return self._take_ready()
         b = self._pop_assemble(key, cause)
         while True:
-            w = self._route(b)
+            try:
+                w = self._route(b)
+            except NoLiveWorkersError:
+                # the batch goes back to the queue (its rids kept), so
+                # revive_workers() and the next poll serve it
+                self.queue.requeue(b.requests[:b.n_valid])
+                raise
             if w.pending is not None:
                 self._retire_worker(w)        # free its pipeline slot
                 if not w.alive:
@@ -722,6 +782,8 @@ class HEFrontend(HEServer):
             "frontend": {
                 "transport": self.transport_kind,
                 "worker_device": self.worker_device,
+                "worker_devices": self.worker_devices,
+                "grid": None if self.grid is None else self.grid.name,
                 "workers": len(self.workers),
                 "alive": len(self._alive_workers()),
                 "deaths": self._c_deaths.value,
@@ -732,10 +794,14 @@ class HEFrontend(HEServer):
 
     def close(self) -> None:
         """Shut every worker down (subprocess transports exit their
-        frame loops; in-process ones just drop)."""
+        frame loops, ending their followers; in-process ones just drop)
+        and end the followers of this frontend's grid."""
         for w in self.workers:
             try:
                 w.transport.close()
             except Exception:                 # noqa: BLE001 — best effort
                 pass
             w.alive = False
+        if self._open:
+            self._open = False
+            relay_stop(self.grid)

@@ -66,12 +66,15 @@ Across ranks (``grid=`` a HostGrid of data size 1 and model size R > 1,
 this process its rank 0): the queue, the scheduler and the metrics run
 here only; every other rank runs :func:`serve_follower`. The server
 broadcasts over the model group (``relay_*``), before each engine step
-runs here, a header (JSON: op, level, extra, the operands' names,
-shapes and types) and then the operands; the followers run the same step
-on their prime rows, and iCRT's all-reduces inside it give every rank
-the same words, so the results are rank 0's own. Keys reach the
-followers the same way (whole; each keeps its rows), booked in the
-grid's feed log. ``close()`` (or a stop message) ends the followers'
+runs here, a header (JSON: the worker it is for, op, level, extra, the
+operands' names, shapes and types) and then the operands; the followers
+run the same step on their prime rows, and iCRT's all-reduces inside it
+give every rank the same words, so the results are rank 0's own. Keys
+reach the followers the same way (whole, in the params' word type; each
+keeps its rows), booked in the grid's feed log. A server is worker 0;
+the in-process workers of an ``HEFrontend(grid=)`` relay under their own
+``wid``, and the followers keep a cache and an engine for each. Any
+word size and iCRT strategy runs across ranks. ``close()`` (or a stop message) ends the followers'
 loops; a follower that dies makes rank 0's next broadcast or all-reduce
 raise, within the grid's time limit at most.
 """
@@ -89,6 +92,7 @@ import torch
 from repro_torch.core.cipher import Ciphertext, EvalKey
 from repro_torch.core.context import resolve_device
 from repro_torch.core.params import HEParams
+from repro_torch.core.rns import kernels_on
 from repro_torch.hserve.circuit import CircuitOp, circuit_schedule
 from repro_torch.hserve.engine import Inflight, OpEngine, slot_sum_rotations
 from repro_torch.hserve.metrics import ServeMetrics
@@ -96,12 +100,12 @@ from repro_torch.hserve.queue import Batch, BatchAssembler, PLAIN_OPS, \
     RequestQueue
 from repro_torch.hserve.scheduler import CircuitScheduler
 from repro_torch.dist import comm
-from repro_torch.dist.he_pipeline import check_grid, he_static
+from repro_torch.dist.he_pipeline import he_static
 from repro_torch.hserve.tables import TableCache
 from repro_torch.obs.registry import MetricsRegistry
 
-__all__ = ["HEServer", "serve_follower", "relay_init", "relay_key",
-           "relay_batch"]
+__all__ = ["HEServer", "serve_follower", "leader_backend", "relay_init",
+           "relay_key", "relay_batch", "relay_stop"]
 
 
 _KEY_FIELDS = ("ax_ev", "ax_ev_shoup", "bx_ev", "bx_ev_shoup")
@@ -141,54 +145,103 @@ def _to_followers(grid, tensors) -> None:
         comm.broadcast(grid, t.to(grid.device).contiguous())
 
 
-def relay_init(grid, knobs: dict) -> None:
-    """Tell the followers the engine knobs to build their engines with."""
-    _send_header(grid, {"kind": "init", "knobs": knobs})
+def relay_init(grid, knobs: dict, wid: int = 0) -> None:
+    """Tell the followers the engine knobs to build worker `wid`'s table
+    cache and engine with (a leader that is one HEServer is worker 0)."""
+    _send_header(grid, {"kind": "init", "wid": wid, "knobs": knobs})
 
 
-def relay_key(grid, kind: str, r: Optional[int], key: EvalKey) -> None:
-    """Send the followers a key, whole ("evk", "rot" with its amount,
-    "conj"); each keeps its rows."""
+def relay_key(grid, kind: str, r: Optional[int], key: EvalKey,
+              wid: int = 0) -> None:
+    """Send the followers a key of worker `wid`, whole ("evk", "rot" with
+    its amount, "conj"); each keeps its rows."""
     ts = [getattr(key, f) for f in _KEY_FIELDS]
-    _send_header(grid, {"kind": "key", "key": kind, "r": r,
+    _send_header(grid, {"kind": "key", "wid": wid, "key": kind, "r": r,
                         "shape": list(ts[0].shape)})
     _to_followers(grid, ts)
 
 
-def relay_batch(grid, key: Tuple, arrays: Dict[str, torch.Tensor]) -> None:
-    """Send the followers one engine step's signature and operands."""
+def relay_batch(grid, key: Tuple, arrays: Dict[str, torch.Tensor],
+                wid: int = 0) -> None:
+    """Send the followers one engine step's signature and operands, for
+    worker `wid`'s engine."""
     _send_header(grid, {
-        "kind": "batch", "key": list(key),
+        "kind": "batch", "wid": wid, "key": list(key),
         "arrays": [[k, list(v.shape), str(v.dtype).removeprefix("torch.")]
                    for k, v in arrays.items()]})
     _to_followers(grid, arrays.values())
 
 
+def leader_backend(params: HEParams, device: torch.device, grid, evk,
+                   rot_keys, conj_key, *, wid: int = 0, who: str,
+                   plain_cache_mib: Optional[float] = 256.0,
+                   **engine_knobs) -> Tuple[TableCache, OpEngine]:
+    """The TableCache and OpEngine of worker `wid` on rank 0 of a grid of
+    data size 1 (an HEServer is worker 0): they hold this rank's rows, the
+    followers are told to build theirs (:func:`relay_init`), every key is
+    relayed before the cache takes it and every step before it runs.
+    `who` names the caller in the refusal of any other rank or device."""
+    if grid.data != 1 or grid.rank != 0 or grid.device != device:
+        raise ValueError(
+            f"{who} runs on rank 0 of a grid of data size 1, on the grid's "
+            f"device; got rank {grid.rank} of {grid.name} on "
+            f"{grid.device}, asked {device}")
+    cache = TableCache(params, plain_cache_mib=plain_cache_mib,
+                       device=device, grid=grid,
+                       relay=partial(relay_key, grid, wid=wid))
+    engine = OpEngine(params, device, cache, grid=grid,
+                      relay=partial(relay_batch, grid, wid=wid),
+                      **engine_knobs)
+    relay_init(grid, engine.knobs, wid=wid)
+    if evk is not None:
+        cache.set_evk(evk)
+    for r, rk in (rot_keys or {}).items():
+        cache.add_rot_key(r, rk)
+    if conj_key is not None:
+        cache.add_conj_key(conj_key)
+    return cache, engine
+
+
+def relay_stop(grid) -> None:
+    """End the followers' loops."""
+    _send_header(grid, {"kind": "stop"})
+
+
 def serve_follower(grid, params: HEParams) -> dict:
-    """A model rank other than 0 of a serving grid: build this rank's
-    TableCache and OpEngine from the leader's init message, then run every
-    step (and load every key) the leader relays, until its stop message.
-    Returns this rank's counts: steps run, the feed and step logs, and its
-    table cache's stats. Every wait is a collective, bounded by the grid's
-    time limit; a leader that is gone makes it raise."""
+    """A model rank other than 0 of a serving grid: for every worker the
+    leader announces (one for an HEServer; one per in-process worker of an
+    HEFrontend), build this rank's TableCache and OpEngine from its init
+    message, then run every step (and load every key) the leader relays
+    to it, until the stop message. A relayed message names its worker
+    (``wid``), so two workers sharing these followers never mix their
+    caches; a worker's new init replaces its pair. Returns this rank's
+    counts: steps run, the feed and step logs, and each worker's table
+    cache stats (``cache``: worker 0's, or the first's). Every wait is a
+    collective, bounded by the grid's time limit; a leader that is gone
+    makes it raise."""
     if grid.model_rank == 0 or grid.data != 1:
         raise ValueError("serve_follower runs on model ranks 1.. of a grid "
                          "of data size 1; rank 0 runs HEServer(grid=)")
-    head = _recv_header(grid)
-    if head["kind"] != "init":
-        raise RuntimeError(f"follower expected init, got {head['kind']!r}")
-    cache = TableCache(params, device=grid.device, grid=grid)
-    engine = OpEngine(params, grid.device, cache, grid=grid,
-                      **head["knobs"])
+    word = he_static(params, params.logQ).dtype       # a key's words
+    workers: Dict[int, Tuple[TableCache, OpEngine]] = {}
     steps = 0
     while True:
         head = _recv_header(grid)
         kind = head["kind"]
         if kind == "stop":
             break
-        if kind == "key":
+        wid = int(head.get("wid", 0))
+        if kind == "init":
+            cache = TableCache(params, device=grid.device, grid=grid)
+            workers[wid] = (cache, OpEngine(params, grid.device, cache,
+                                            grid=grid, **head["knobs"]))
+        elif wid not in workers:
+            raise RuntimeError(f"follower got {kind!r} for worker {wid} "
+                               f"before its init")
+        elif kind == "key":
+            cache = workers[wid][0]
             ts = [comm.broadcast(grid, torch.empty(
-                head["shape"], dtype=torch.int32, device=grid.device))
+                head["shape"], dtype=word, device=grid.device))
                 for _ in _KEY_FIELDS]
             ek = EvalKey(*ts)
             if head["key"] == "evk":
@@ -202,15 +255,18 @@ def serve_follower(grid, params: HEParams) -> dict:
                 shape, dtype=getattr(torch, dtype), device=grid.device))
                 for name, shape, dtype in head["arrays"]}
             op, logq, extra = head["key"]
-            engine.run_step((op, int(logq), extra), arrays)
+            workers[wid][1].run_step((op, int(logq), extra), arrays)
             steps += 1
         else:
             raise RuntimeError(f"unknown relay message {kind!r}")
     if grid.device.type == "cuda":
         torch.cuda.synchronize(grid.device)
+    caches = {w: c.stats() for w, (c, _) in sorted(workers.items())}
     return {"rank": grid.rank, "steps": steps,
             "feed": comm.summary(grid, "feed"),
-            "step": comm.summary(grid, "step"), "cache": cache.stats()}
+            "step": comm.summary(grid, "step"),
+            "cache": caches.get(0, next(iter(caches.values()), None)),
+            "caches": caches}
 
 
 class _CircuitState:
@@ -243,7 +299,8 @@ class HEServer:
     batch:  fixed engine batch size — every step runs (batch, N, qlimbs).
     use_kernels: route the stages through the CUDA kernels (the
             default, as the port's PipelineConfig; CPU tensors take the
-            plain versions either way).
+            plain versions either way). At β = 2^64 there is no kernel:
+            pass False (True raises here, at construction).
     max_age_s: latency SLO — flush a bucket once its oldest request has
             waited this long (None keeps drain-only flushing).
     adaptive_target: size the full-bucket target from the observed
@@ -296,8 +353,8 @@ class HEServer:
     # the arrival-rate estimate decays over this many deadline windows,
     # so a post-idle trickle sees its own rate, not the last burst's
     _RATE_DECAY_WINDOWS = 8
-    # one device unless __init__ is given a grid (HEFrontend never is);
-    # _open while the followers of a grid still serve
+    # one device unless __init__ is given a grid (an HEFrontend's grid
+    # is its workers'); _open while the followers of a grid still serve
     grid = None
     _open = False
 
@@ -319,6 +376,9 @@ class HEServer:
                  registry=None, grid=None,
                  **engine_knobs):
         device = resolve_device(device)
+        # refused here, before any request is queued (β = 2^64 has no
+        # kernel)
+        self.use_kernels = kernels_on(use_kernels, params)
         self.grid = grid if grid is not None and grid.model > 1 else None
         if self.grid is None:
             self.cache = TableCache(params, evk, rot_keys, conj_key,
@@ -329,29 +389,12 @@ class HEServer:
                                    profile_stages=profile_stages,
                                    **engine_knobs)
         else:
-            if grid.data != 1 or grid.rank != 0 or grid.device != device:
-                raise ValueError(
-                    f"HEServer(grid=) runs on rank 0 of a grid of data "
-                    f"size 1, on the grid's device; got rank {grid.rank} "
-                    f"of {grid.name} on {grid.device}, asked {device}")
-            check_grid(he_static(params, params.logQ), self.grid)
             self._open = True
-            self.cache = TableCache(
-                params, plain_cache_mib=plain_cache_mib, device=device,
-                grid=self.grid, relay=partial(relay_key, self.grid))
-            self.engine = OpEngine(params, device, self.cache,
-                                   use_kernels=use_kernels, tracer=tracer,
-                                   profile_stages=profile_stages,
-                                   grid=self.grid,
-                                   relay=partial(relay_batch, self.grid),
-                                   **engine_knobs)
-            relay_init(self.grid, self.engine.knobs)
-            if evk is not None:
-                self.cache.set_evk(evk)
-            for r, rk in (rot_keys or {}).items():
-                self.cache.add_rot_key(r, rk)
-            if conj_key is not None:
-                self.cache.add_conj_key(conj_key)
+            self.cache, self.engine = leader_backend(
+                params, device, self.grid, evk, rot_keys, conj_key,
+                who="HEServer(grid=)", plain_cache_mib=plain_cache_mib,
+                use_kernels=use_kernels, tracer=tracer,
+                profile_stages=profile_stages, **engine_knobs)
         self._init_core(params, device=device, batch=batch,
                         max_age_s=max_age_s,
                         adaptive_target=adaptive_target, overlap=overlap,
@@ -922,7 +965,7 @@ class HEServer:
     def close(self) -> None:
         """End the followers' loops (a grid); nothing on one device."""
         if self._open:
-            _send_header(self.grid, {"kind": "stop"})
+            relay_stop(self.grid)
             self._open = False
 
     def stats(self) -> dict:

@@ -16,9 +16,12 @@ This is the JAX package's ``hserve/transport.py``; a frame of the port and
 one of the reference for the same head and arrays are equal byte for byte.
 Arrays may be numpy arrays or CPU tensors: a tensor goes on the wire as a
 zero-copy numpy view of its storage, its int32 words (the port's u32 bit
-patterns) as ``uint32``, so a ciphertext frames as it does in the
-reference. A tensor on another device is refused — moving it to the host
-is the caller's business. Decoded arrays are numpy; :func:`read_frame`
+patterns) as ``uint32``, so a β = 2^32 ciphertext frames as it does in the
+reference. An int64 tensor is not always a word array, so it frames as
+``int64`` unless the caller passes it through :func:`words`, which gives
+the β = 2^64 words' ``uint64`` view (the frontend's batches and keys and
+the worker's results do). A tensor on another device is refused — moving
+it to the host is the caller's business. Decoded arrays are numpy; :func:`read_frame`
 reads each payload straight into its own writable array, and
 :func:`write_frame` writes the header and then each payload to the stream
 in turn, without joining them into one buffer first.
@@ -59,6 +62,7 @@ _LEN = struct.Struct("<I")
 
 __all__ = [
     "WorkerDied",
+    "words",
     "encode_frame",
     "write_frame",
     "decode_frame",
@@ -75,6 +79,16 @@ class WorkerDied(RuntimeError):
     killed in-process worker. The frontend catches this, marks the
     worker dead, and requeues its in-flight batch.
     """
+
+
+def words(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor of stored words as the reference's wire array, without
+    a copy: int32 (β = 2^32) as ``uint32``, int64 (β = 2^64) as
+    ``uint64``."""
+    if t.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"stored words are int32 or int64; got {t.dtype}")
+    a = _wire_array(t)
+    return a.view(np.uint32 if a.itemsize == 4 else np.uint64)
 
 
 def _wire_array(a) -> np.ndarray:

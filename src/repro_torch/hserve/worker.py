@@ -20,12 +20,19 @@ frontend's ``check_workers`` reads these; a stale heartbeat marks the
 worker dead and its in-flight batch is requeued.
 
 :func:`main` runs the subprocess loop: read an ``init`` frame from stdin
-(params, device, key material), then serve ``batch``/``add_key``/
-``stats`` frames until ``shutdown``.
+(params, device, the grid's shape, key material), then serve ``batch``/
+``add_key``/``stats`` frames until ``shutdown``.
 
-This is the JAX package's ``hserve/worker.py`` on one device: ``device=``
-(default "cuda") in place of ``mesh=``. A worker that cannot open its
-device fails its init; there is no fallback to the CPU.
+This is the JAX package's ``hserve/worker.py``: ``device=`` (default
+"cuda") in place of ``mesh=``, and ``grid=`` (a HostGrid of data size 1,
+this process its rank 0) for a model grid — the reference's
+``(1, worker_devices)`` mesh: the cache and engine then hold this rank's
+prime rows, and the worker's init, keys and every step are relayed, tagged
+with its ``wid``, to the grid's other ranks, which run
+``hserve.serve_follower`` (two in-process workers of one frontend share
+its followers). A worker that cannot open its device fails its init;
+there is no fallback to the CPU. Words cross the wire as the reference's
+(``transport.words``: uint32 at β = 2^32, uint64 at β = 2^64).
 """
 
 from __future__ import annotations
@@ -40,9 +47,13 @@ import torch
 from repro_torch.core.cipher import EvalKey
 from repro_torch.core.context import resolve_device
 from repro_torch.core.params import HEParams
+from repro_torch.core.rns import kernels_on
+from repro_torch.dist import comm
 from repro_torch.hserve.engine import OpEngine
 from repro_torch.hserve.queue import Batch, Request
+from repro_torch.hserve.server import leader_backend
 from repro_torch.hserve.tables import TableCache
+from repro_torch.hserve.transport import words
 from repro_torch.kernels import common
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.runtime.monitor import Heartbeat
@@ -64,9 +75,13 @@ class _CtMeta:
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
-    """A frame array as a CPU tensor without a copy; uint32 words become
-    the port's int32 bit patterns."""
-    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+    """A frame array as a CPU tensor without a copy; words become the
+    port's stored bit patterns: uint32 as int32, uint64 as int64."""
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype == np.uint64:
+        a = a.view(np.int64)
+    return torch.from_numpy(a)
 
 
 def _eval_key(arrays: Dict[str, np.ndarray], prefix: str = "") -> EvalKey:
@@ -103,7 +118,7 @@ class WorkerEngine:
 
     def __init__(self, params: HEParams, evk=None, rot_keys=None,
                  conj_key=None, *, device: str | torch.device = "cuda",
-                 wid: int = 0,
+                 wid: int = 0, grid=None,
                  clock: Callable[[], float] = time.perf_counter,
                  heartbeat_path=None, heartbeat_interval: float = 0.0,
                  heartbeat_clock: Optional[Callable[[], float]] = None,
@@ -111,10 +126,20 @@ class WorkerEngine:
         self.params = params
         self.wid = wid
         self.device = resolve_device(device)
-        self.cache = TableCache(params, evk, rot_keys, conj_key,
-                                device=self.device)
-        self.engine = OpEngine(params, self.device, self.cache,
-                               use_kernels=use_kernels, **engine_knobs)
+        kernels_on(use_kernels, params)
+        self.grid = grid if grid is not None and grid.model > 1 else None
+        if self.grid is None:
+            self.cache = TableCache(params, evk, rot_keys, conj_key,
+                                    device=self.device)
+            self.engine = OpEngine(params, self.device, self.cache,
+                                   use_kernels=use_kernels, **engine_knobs)
+        else:
+            # rank 0 of a model grid: this worker's rows, announced to the
+            # followers under its wid
+            self.cache, self.engine = leader_backend(
+                params, self.device, self.grid, evk, rot_keys, conj_key,
+                wid=wid, who="a worker on a grid", use_kernels=use_kernels,
+                **engine_knobs)
         self._clock = clock
         self.batches = 0
         self.registry = MetricsRegistry()
@@ -129,6 +154,13 @@ class WorkerEngine:
         # subprocess worker's are its own; in-process workers share the
         # frontend process's counts)
         self.registry.add_source("kernels", lambda: dict(common.LAUNCHES))
+        if self.grid is not None:
+            # this rank's collectives in its steps and its relay (counts,
+            # bytes, seconds)
+            self.registry.add_source("grid", lambda: {
+                "shape": self.grid.name,
+                "step": comm.summary(self.grid, "step"),
+                "feed": comm.summary(self.grid, "feed")})
         self.heartbeat = None
         if heartbeat_path is not None:
             # the heartbeat timestamp must live on the FRONTEND's
@@ -168,6 +200,8 @@ class WorkerEngine:
                       "snapshot": self.registry.snapshot()}, {})
             if head.get("reset_launches"):
                 common.reset_launches()
+                if self.grid is not None:
+                    comm.reset(self.grid)
         elif t == "shutdown":
             reply = ({"type": "ok"}, {})
         else:
@@ -177,7 +211,7 @@ class WorkerEngine:
 
     def serve_batch(self, head: Dict[str, Any],
                     arrays: Dict[str, np.ndarray]
-                    ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+                    ) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
         """Run one batch: `wall` is the engine's dispatch → ready (the
         host-to-device copy included), `d2h_s` the stacked results'
         copy back to the host."""
@@ -190,8 +224,8 @@ class WorkerEngine:
         self._c_requests.inc(b.n_valid)
         self._h_wall.add(wall)
         t1 = time.perf_counter()
-        rarrays = {"ax": torch.stack([c.ax for c in outs]).cpu(),
-                   "bx": torch.stack([c.bx for c in outs]).cpu()}
+        rarrays = {"ax": words(torch.stack([c.ax for c in outs]).cpu()),
+                   "bx": words(torch.stack([c.bx for c in outs]).cpu())}
         rhead = {"type": "result", "seq": head["seq"], "wall": wall,
                  "d2h_s": time.perf_counter() - t1,
                  "outs": [{"logq": c.logq, "logp": c.logp,
@@ -218,38 +252,62 @@ def main(out) -> None:
     the only way a worker starts. A worker that fails its init
     (no such device, a kernel build that fails) answers with an "error"
     frame and exits non-zero.
+
+    An init frame whose ``"grid"`` is ``[1, R]`` with R > 1 makes this
+    process rank 0 of its own R-rank grid: it spawns R − 1 followers
+    beside it (``launch.mesh.spawn_followers`` running
+    ``hserve.serve_follower``, on the worker's device) and serves every
+    batch across them; its ack names their pids. A shutdown ends them;
+    a follower whose worker is killed ends itself.
     """
     import sys
 
-    inp = sys.stdin.buffer
+    from repro_torch.hserve.server import relay_stop, serve_follower
     from repro_torch.hserve.transport import read_frame, write_frame
+    from repro_torch.launch.mesh import spawn_followers
 
+    inp = sys.stdin.buffer
     head, arrays = read_frame(inp)
     if head["type"] != "init":
         raise SystemExit(f"expected init frame, got {head['type']!r}")
+    grid = group = None
     try:
         params = HEParams(**head["params"])
         evk, rot_keys, conj_key = _keys_from_init(head, arrays)
         hb = head.get("heartbeat") or {}
+        knobs = head.get("knobs", {})
+        kernels_on(knobs.get("use_kernels", True), params)
+        device = head["device"]
+        model = int((head.get("grid") or [1, 1])[1])
+        if model > 1:
+            grid, group = spawn_followers(serve_follower, model=model,
+                                          device=device, args=(params,))
+            device = grid.device
         worker = WorkerEngine(
-            params, evk, rot_keys, conj_key, device=head["device"],
-            wid=int(head.get("wid", 0)),
+            params, evk, rot_keys, conj_key, device=device,
+            wid=int(head.get("wid", 0)), grid=grid,
             heartbeat_path=hb.get("path"),
-            heartbeat_interval=float(hb.get("interval", 0.0)),
-            **head.get("knobs", {}))
-        if worker.device.type == "cuda" and head.get("knobs", {}).get(
-                "use_kernels", True):
+            heartbeat_interval=float(hb.get("interval", 0.0)), **knobs)
+        if worker.device.type == "cuda" and knobs.get("use_kernels", True):
             common.library()            # build or load before the ack
     except Exception as e:                    # noqa: BLE001 — reported
         write_frame(out, {"type": "error",
                           "error": f"{type(e).__name__}: {e}"})
+        if group is not None:
+            group.join(timeout_s=0.0)
         raise SystemExit(1) from e
     del arrays                                # the cache holds the keys
     write_frame(out, {"type": "ok", "wid": worker.wid,
-                      "device": str(worker.device)})
+                      "device": str(worker.device),
+                      "grid": None if grid is None else list(grid.shape),
+                      "followers": [] if group is None else group.pids})
     timing: Dict[str, float] = {}
     while True:
         head, arrays = read_frame(inp, timing)
+        if head["type"] == "shutdown" and grid is not None:
+            relay_stop(grid)
+            group.join()
+            grid.close()
         reply = worker.handle(head, arrays)
         if reply is not None:
             if reply[0]["type"] == "result":

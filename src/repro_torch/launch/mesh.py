@@ -15,7 +15,11 @@ issues the collectives itself (:mod:`repro_torch.dist.comm`), over
   - :func:`spawn_grid` starts the ranks of a grid as processes in spawn
     mode (CUDA forbids fork), meeting at a ``file://`` rendezvous in a
     temporary directory, runs a function in each and returns what each
-    returned.
+    returned;
+  - :func:`spawn_followers` makes the calling process rank 0 of a
+    ``(1, model)`` grid and starts ranks 1.. beside it, each running a
+    function until it returns (a worker process of the serving tier and
+    its followers); a follower ends itself when its parent is gone.
 
 Ranks are numbered row-major over ``(data, model)``, as the reference's
 device ids are. The backend follows one explicit rule
@@ -32,7 +36,9 @@ import datetime
 import os
 import pickle
 import queue
+import sys
 import tempfile
+import threading
 import time
 import traceback
 from typing import Any, Callable, Optional, Sequence
@@ -42,7 +48,7 @@ import torch
 from repro_torch.core.context import resolve_device
 
 __all__ = ["HostGrid", "make_host_grid", "grid_devices", "grid_backend",
-           "spawn_grid", "single_grid"]
+           "spawn_grid", "spawn_followers", "FollowerGroup", "single_grid"]
 
 # the time limit of every collective and of every wait on a peer
 DEFAULT_TIMEOUT_S = 300.0
@@ -283,3 +289,90 @@ def spawn_grid(fn: Callable, *, model: int, data: int = 1,
         raise RuntimeError(f"rank {rank} of a {data}x{model} grid failed:\n"
                            f"{failed[rank]}")
     return [results[r] for r in range(size)]
+
+
+def _orphan_watch(parent: int) -> None:
+    """End this process as soon as its parent is gone (polled twice a
+    second): a follower must not outlive the process it follows."""
+    while os.getppid() == parent:
+        time.sleep(0.5)
+    os._exit(1)
+
+
+def _follower_main(fn, args, rank, model, device, init_method, timeout_s,
+                   parent) -> None:
+    threading.Thread(target=_orphan_watch, args=(parent,),
+                     daemon=True).start()
+    try:
+        if resolve_device(device).type == "cpu":
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // model))
+        grid = make_host_grid(model, 1, rank=rank, init_method=init_method,
+                              device=device, timeout_s=timeout_s)
+        try:
+            fn(grid, *args)
+        finally:
+            grid.close()
+    except BaseException:                   # the parent sees the exit code
+        if os.getppid() == parent:          # else: the leader is gone
+            traceback.print_exc(file=sys.stderr)
+            sys.stderr.flush()
+        os._exit(1)
+
+
+class FollowerGroup:
+    """Ranks 1.. of a grid whose rank 0 is this process
+    (:func:`spawn_followers`): their processes and rendezvous."""
+
+    def __init__(self, procs: list, tmp: tempfile.TemporaryDirectory):
+        self.procs = procs
+        self._tmp = tmp
+
+    @property
+    def pids(self) -> list[int]:
+        return [p.pid for p in self.procs]
+
+    def join(self, timeout_s: float = 30.0) -> list:
+        """Wait up to `timeout_s` for every follower to end, stop those
+        that have not, remove the rendezvous; returns the exit codes."""
+        deadline = time.monotonic() + timeout_s
+        for p in self.procs:
+            p.join(timeout=max(0.0, deadline - time.monotonic()))
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5.0)
+        self._tmp.cleanup()
+        return [p.exitcode for p in self.procs]
+
+
+def spawn_followers(fn: Callable, *, model: int,
+                    device: str | torch.device = "cuda", args: tuple = (),
+                    timeout_s: float = DEFAULT_TIMEOUT_S
+                    ) -> tuple[HostGrid, FollowerGroup]:
+    """Make this process rank 0 of a ``(1, model)`` grid on `device` and
+    start ranks 1..model−1 as spawned processes, each running
+    ``fn(grid, *args)`` (importable by name) and then ending; returns
+    this rank's HostGrid and the group. Every collective of the grid is
+    bounded by `timeout_s`. A follower whose parent dies ends itself
+    within a second; the caller ends the others (a stop message to `fn`,
+    then :meth:`FollowerGroup.join`)."""
+    import torch.multiprocessing as mp
+    if model < 2:
+        raise ValueError(f"a follower group needs model >= 2; got {model}")
+    resolve_device(device)                  # the card, or raise here
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.TemporaryDirectory(prefix="followers-")
+    init = "file://" + os.path.join(tmp.name, "rendezvous")
+    procs = [ctx.Process(target=_follower_main,
+                         args=(fn, args, r, model, str(device), init,
+                               timeout_s, os.getpid()), daemon=True)
+             for r in range(1, model)]
+    for p in procs:
+        p.start()
+    group = FollowerGroup(procs, tmp)
+    try:
+        grid = make_host_grid(model, 1, rank=0, init_method=init,
+                              device=device, timeout_s=timeout_s)
+    except BaseException:
+        group.join(timeout_s=0.0)
+        raise
+    return grid, group

@@ -18,8 +18,12 @@ parameters (``boot_params()`` with ``--bootstrap``). ``--model-shards R``
 spawns a grid of R model ranks (data size 1; ``launch.mesh.spawn_grid``)
 on the card, or on the CPU with ``--device cpu``: rank 0 serves as
 without it, through ``HEServer(grid=)``, and the other ranks run
-``hserve.serve_follower``. On one card the ranks share it (gloo). Not
-ported yet: the LM serving path.
+``hserve.serve_follower``. With ``--workers W`` as well, rank 0 runs the
+frontend, its W in-process workers spread over the grid (the
+reference's ``HEFrontend(mesh=make_host_mesh(model=R))``); with
+``--transport subprocess`` no grid is spawned here: each worker process
+is rank 0 of its own R-rank grid (``worker_devices=R``). On one card the
+ranks share it (gloo). Not ported yet: the LM serving path.
 """
 
 from __future__ import annotations
@@ -100,20 +104,22 @@ def serve_he(batch: int, requests: int = 0, levels: int = 1,
     `model_shards` R > 1 serves the same stream across R model ranks:
     spawns the grid (its ranks on `device`) and returns rank 0's stats,
     which name the grid; rank 0 runs this function with `grid` (its
-    HostGrid) and the others ``serve_follower``. Bit for bit the
-    one-device path.
+    HostGrid) and the others ``serve_follower``. With `workers`, rank 0's
+    frontend spreads its in-process workers over that grid; with
+    ``transport="subprocess"`` nothing is spawned here and every worker
+    process runs a grid of R ranks of its own. Bit for bit the one-device
+    path.
     """
-    if model_shards > 1:
-        if workers > 0:
-            raise ValueError("--model-shards with --workers is not ported "
-                             "yet (ROADMAP: HEFrontend on a model grid)")
+    subprocess_grids = workers > 0 and transport == "subprocess"
+    if model_shards > 1 and not subprocess_grids:
         kw = dict(batch=batch, requests=requests, levels=levels,
                   rotations=rotations, conjugations=conjugations,
                   plain_frac=plain_frac, use_kernels=use_kernels,
                   max_age_s=max_age_s, overlap=overlap, circuit=circuit,
                   schedule=schedule, traced=traced, check=check, seed=seed,
                   trace=trace, profile_stages=profile_stages,
-                  metrics=metrics, bootstrap=bootstrap)
+                  metrics=metrics, workers=workers, transport=transport,
+                  bootstrap=bootstrap)
         return spawn_grid(_serve_rank, model=model_shards, device=device,
                           args=(kw,))[0]
     dev = grid.device if grid is not None else resolve_device(device)
@@ -139,7 +145,8 @@ def serve_he(batch: int, requests: int = 0, levels: int = 1,
         sk, pk, evk = keygen(params, seed=0, device=dev)
         frontend = HEFrontend(
             params, evk, batch=batch, workers=workers,
-            transport=transport, worker_device=str(dev),
+            transport=transport, worker_device=str(dev), grid=grid,
+            worker_devices=model_shards if subprocess_grids else 1,
             use_kernels=use_kernels, max_age_s=max_age_s,
             schedule=schedule, tracer=tracer)
         session = HESession(params, sk, pk, evk, server=frontend,
@@ -395,7 +402,9 @@ def main(argv=None) -> None:
                     help="spread the tables, keys and every step's primes "
                          "over R model ranks (spawned processes on "
                          "--device; one card is shared by all, over gloo); "
-                         "1 = one rank")
+                         "with --workers, the in-process workers share one "
+                         "grid, and each worker process of --transport "
+                         "subprocess runs its own; 1 = one rank")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome trace-event JSON of the request "
@@ -433,6 +442,11 @@ def main(argv=None) -> None:
     # device is only the host tier that frames them
     where = (f"{stats['frontend']['worker_device']} workers (host tier "
              f"{stats['device']})" if args.workers else stats["device"])
+    if args.workers and args.model_shards > 1:
+        fr = stats["frontend"]
+        owner = ("one a worker process" if fr["grid"] is None
+                 else "shared by the in-process workers")
+        where += f" on model grids 1x{args.model_shards} ({owner})"
     if "grid" in stats:
         g = stats["grid"]
         where += (f" grid {g['data']}x{g['model']} ({g['backend']}, "

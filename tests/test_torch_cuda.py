@@ -621,6 +621,43 @@ def test_cuda_frontend_equals_heserver(dev, transport):
             fe.close()
 
 
+def test_cuda_worker_process_on_its_own_grid_equals_heserver(dev):
+    """A worker process that is rank 0 of its own 2-rank grid on the card
+    (its follower beside it, gloo): the stream equals HEServer's, and the
+    split iCRT kernels launch inside the worker in place of the fused
+    one."""
+    from repro_torch.hserve import HEFrontend, HEServer
+    p = small_params()
+    sk, pk, evk = keygen(p, seed=3, device=dev)
+    rng = np.random.default_rng(14)
+    cts = [H.encrypt_message(rng.random(4) + 1j * rng.random(4), pk, p,
+                             seed=80 + i) for i in range(4)]
+
+    def stream(s, on):
+        rids = [s.submit_mul(on(a), on(b))
+                for a, b in zip(cts, cts[1:] + cts[:1])]
+        res = s.drain()
+        return [res[r] for r in rids]
+
+    want = stream(HEServer(p, evk, device=dev, batch=2), lambda c: c)
+    fe = HEFrontend(p, evk, workers=1, transport="subprocess",
+                    worker_devices=2, batch=2)
+    try:
+        assert len(fe.workers[0].followers) == 1
+        fe.worker_stats(reset_launches=True)
+        got = stream(fe, lambda c: c.to("cpu"))
+        for a, b in zip(got, want):
+            assert torch.equal(a.ax, b.ax.cpu())
+            assert torch.equal(a.bx, b.bx.cpu())
+        snap = fe.worker_stats()[0]
+        assert snap["kernels"]["icrt_partial"] > 0
+        assert snap["kernels"]["icrt_finish"] > 0
+        assert snap["kernels"]["icrt"] == 0
+        assert snap["grid"]["step"]["counts"]["all-reduce"] > 0
+    finally:
+        fe.close()
+
+
 def test_cuda_worker_init_raises_without_its_card(dev):
     """A worker asked for a card the machine does not have fails its
     init — in a worker process at the ack, in this process at the

@@ -80,3 +80,33 @@ def test_one_rank_records_no_collective(record):
             assert cell["collectives"]["total_bytes"] == 0.0
             assert cell["memory"]["peak_bytes"] is None     # the CPU
     assert record["groups"]["2x4"]["model"] == [[0, 1, 2, 3], [4, 5, 6, 7]]
+
+
+@pytest.mark.parametrize("form", [("acc3", 32), ("naive", 64)],
+                         ids=["acc3", "naive-beta64"])
+def test_record_of_a_column_form_meets_its_prediction(form, tmp_path):
+    """``--icrt-strategy`` and ``--beta-bits``: on a (1,2) grid every
+    cell's measured counts and wire bytes equal he_expected_collectives
+    for that form (the port's own prediction: two all-reduces a
+    reduction), with no collective-permute."""
+    strategy, bits = form
+    out = tmp_path / "rec.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-m", "repro_torch.dist", "--record",
+                    str(out), "--grid", "1x2", "--device", "cpu",
+                    "--icrt-strategy", strategy, "--beta-bits", str(bits)],
+                   check=True, env=env, timeout=300, cwd=ROOT,
+                   capture_output=True)
+    rec = json.loads(out.read_text())
+    assert rec["icrt_strategy"] == strategy
+    assert rec["params"]["beta_bits"] == bits
+    reduced = 0
+    for key, cell in rec["cells"].items():
+        got, exp = cell["collectives"], cell["expected"]
+        assert got["counts"] == exp["counts"], key
+        assert got["total_bytes"] == exp["wire_bytes"], key
+        assert "collective-permute" not in got["counts"]
+        if key.endswith("/1x2") and got["counts"]:
+            reduced += 1
+            assert got["counts"]["all-reduce"] % 2 == 0
+    assert reduced == 15

@@ -84,18 +84,24 @@ def test_killed_follower_makes_rank_0_raise_in_its_time_limit():
 
 
 def test_model_shards_refuses_workers_and_follower_rules():
-    with pytest.raises(ValueError, match="HEFrontend on a model grid"):
-        serve_he(2, workers=2, model_shards=2, device="cpu")
-    from repro_torch.hserve import HEServer, serve_follower
+    """What a grid server still refuses: a frontend asked for both a grid
+    and worker processes (``serve_he`` builds each worker's own grid
+    then), a server off rank 0 or on a grid of data size > 1, a follower
+    on rank 0, and the kernels at β = 2^64 (on a grid as on one device;
+    the word size itself now runs across ranks)."""
+    from repro_torch.hserve import HEFrontend, HEServer, serve_follower
     from repro_torch.launch.mesh import HostGrid
     p = R.params()
     cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="worker_devices"):
+        HEFrontend(p, transport="subprocess", worker_device="cpu",
+                   grid=HostGrid(1, 2, 0, cpu, "gloo"))
     with pytest.raises(ValueError, match="rank 0"):
         HEServer(p, device="cpu", grid=HostGrid(1, 2, 1, cpu, "gloo"))
     with pytest.raises(ValueError, match="data size 1"):
         HEServer(p, device="cpu", grid=HostGrid(2, 2, 0, cpu, "gloo"))
     with pytest.raises(ValueError, match="serve_follower runs"):
         serve_follower(HostGrid(1, 2, 0, cpu, "gloo"), p)
-    with pytest.raises(ValueError, match="A7c"):     # β = 2^64
+    with pytest.raises(ValueError, match="use_kernels=False"):     # β = 2^64
         HEServer(test_params(logN=4, beta_bits=64), device="cpu",
                  grid=HostGrid(1, 2, 0, cpu, "gloo"))

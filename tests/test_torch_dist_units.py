@@ -7,7 +7,9 @@ as JSON; the port's run on shape-only grids (a HostGrid of rank 0 with no
 process group: the formulas read only its shape). The split iCRT
 (``icrt_partial`` over the shards of a region's primes, summed, then
 ``icrt_finish``) is held against the JAX ``core.crt.icrt`` at
-``test_params(logN=5)``, on random and edge residues.
+``test_params(logN=5)``, on random and edge residues: in the matmul form
+of the split kernels, and in the column form of iCRT "acc3" and "naive"
+and of β = 2^64, over 1–4 shards, a shard of one prime and an empty one.
 """
 
 import json
@@ -249,6 +251,93 @@ def test_partial_sums_finish_to_the_jax_icrt(shards, region, kind):
     assert torch.equal(got, got_op)
 
 
+def _edge_residues(primes, npn, n, kind, seed, bits):
+    """_residues at either word size: random residues, every p_j − 1, or
+    X = 1, P − 1, ⌊P/2⌋, ⌊P/2⌋ + 1 in turn; as the stored words."""
+    ps = primes[:npn]
+    if kind == "random":
+        rng = np.random.default_rng(seed)
+        r = [[int(x) % p for x in rng.integers(0, 1 << 62, size=n,
+                                               dtype=np.uint64)]
+             for p in ps]
+    elif kind == "p-1":
+        r = [[p - 1] * n for p in ps]
+    else:
+        P = 1
+        for p in ps:
+            P *= p
+        r = [[x % p for x in (1, P - 1, P // 2, P // 2 + 1)] * (n // 4)
+             for p in ps]
+    a = np.array(r, dtype=np.uint64).reshape(npn, n)
+    return a.astype(np.uint32) if bits == 32 else a
+
+
+_JICRT: dict = {}
+
+
+def _shard_slices(spec, npn):
+    if spec == "one prime":             # a shard of one prime, the rest
+        return [slice(0, 1), slice(1, npn)]
+    if spec == "empty":                 # an empty shard, then all of P
+        return [slice(0, 0), slice(0, npn)]
+    return [prime_rows(npn, spec, k) for k in range(spec)]
+
+
+@pytest.mark.parametrize("kind", ["random", "p-1", "near-integer"])
+@pytest.mark.parametrize("region", [1, 2])
+@pytest.mark.parametrize("shards", [1, 2, 3, 4, "one prime", "empty"])
+@pytest.mark.parametrize("form", [("acc3", 32), ("naive", 32),
+                                  ("matmul", 64), ("acc3", 64),
+                                  ("naive", 64)],
+                         ids=lambda f: f"{f[0]}-{f[1]}")
+def test_partial_sums_of_every_form_finish_to_the_jax_icrt(form, shards,
+                                                           region, kind):
+    """test_partial_sums_finish_to_the_jax_icrt for iCRT "acc3" and
+    "naive" at β = 2^32 and every strategy at β = 2^64 (the column form
+    of icrt_partial): the shards' partials, summed, then icrt_finish, ==
+    the JAX icrt with that strategy, at test_params(logN=5), word for
+    word."""
+    strategy, bits = form
+    pp = MANIFEST["params"]
+    tp = t_test_params(logN=pp["logN"], beta_bits=bits, logQ=pp["logQ"],
+                       logp=pp["logp"])
+    jp = j_test_params(logN=pp["logN"], beta_bits=bits, logQ=pp["logQ"],
+                       logp=pp["logp"])
+    logq = tp.logQ
+    npn = tp.np_region1(logq) if region == 1 else tp.np_region2(logq)
+    out_limbs = tp.qlimbs(logq)
+    primes = [int(p) for p in tp.primes[:npn]]
+    r = _edge_residues(primes, npn, 4 * tp.N, kind, 7 * region + bits,
+                       bits)
+    key = (bits, region, kind, strategy)
+    if key not in _JICRT:
+        jg, jt = j_global_tables(jp), j_icrt_tables(jp, npn)
+        _JICRT[key] = np.asarray(j_icrt(
+            r, jt, jg.primes[:npn], jt.inv_P, jt.inv_P_shoup, jt.pdivp,
+            jt.P_limbs, jt.P_half_limbs, jg.p_inv_f64[:npn],
+            out_limbs=out_limbs, strategy=strategy))
+    cpu = torch.device("cpu")
+    t = icrt_inputs(device_icrt_tables(tp, npn, cpu), device_tables(tp, cpu))
+    A = t["P_limbs"].shape[0]
+    rt = torch.from_numpy(r.view(np.int32 if bits == 32 else np.int64))
+    sums = None
+    for s in _shard_slices(shards, npn):
+        ts = {k: (v[s] if k not in ("P_limbs", "P_half_limbs") else v)
+              for k, v in t.items()}
+        cols, hi, qsum = icrt_partial(
+            rt[s], ts["primes"], ts["inv_P"], ts["inv_P_shoup"],
+            ts["pdivp"], ts["p_inv_f64"], strategy=strategy, accum_limbs=A)
+        assert hi is None and cols.shape == (4 * tp.N, A * bits // 32)
+        assert (cols >= 0).all() and (cols < 2 ** 34).all()
+        sums = [cols, qsum] if sums is None else [sums[0] + cols,
+                                                  sums[1] + qsum]
+    got = icrt_finish(sums[0], None, sums[1], t["P_limbs"],
+                      t["P_half_limbs"], out_limbs)
+    want = _JICRT[key]
+    assert got.dtype == (torch.int32 if bits == 32 else torch.int64)
+    assert np.array_equal(got.numpy().view(want.dtype), want)
+
+
 def test_grid_rules():
     """The GSPMD split of primes (an empty shard past np), the batch rows
     with the replicated fallback, the backend rule, a grid of one rank."""
@@ -273,21 +362,72 @@ def test_grid_rules():
     assert comm.all_reduce(one, x) is x and one.log["step"] == []
 
 
-def test_across_ranks_only_matmul_at_beta32():
-    """acc3/naive iCRT and β = 2^64 refuse a model grid (ROADMAP A7c) at
-    build time, before any collective."""
+def test_every_strategy_and_word_size_builds_on_a_grid():
+    """Across ranks every iCRT strategy at both word sizes builds (no
+    collective is issued until a step runs), on the kernel path too at
+    β = 2^32; what has no meaning is refused at build time: an unknown
+    strategy name, a grid on another device than the stages, and the
+    kernels at β = 2^64."""
     grid = HostGrid(data=1, model=2, rank=0, device=torch.device("cpu"),
                     backend="gloo")
-    for strategy in ("acc3", "naive"):
-        with pytest.raises(ValueError, match="A7c"):
-            thp.make_stage_fns("cpu", grid=grid, icrt_strategy=strategy)
+    for strategy in ("matmul", "acc3", "naive"):
+        for kernels in (False, True):
+            sf = thp.make_stage_fns("cpu", grid=grid, icrt_strategy=strategy,
+                                    use_kernels=kernels)
+            assert sf.grid is grid
+        for bits in (32, 64):
+            st = thp.he_static(t_test_params(logN=4, beta_bits=bits), 120)
+            assert callable(thp.make_he_mul_step(
+                st, "cpu", grid=grid, icrt_strategy=strategy))
+    with pytest.raises(ValueError, match="unknown iCRT strategy"):
+        thp.make_stage_fns("cpu", grid=grid, icrt_strategy="acc4")
+    with pytest.raises(ValueError, match="unknown iCRT strategy"):
+        he_expected_collectives("mul", grid, t_test_params(), 120, batch=2,
+                                icrt_strategy="acc4")
+    meta = HostGrid(data=1, model=2, rank=0, device=torch.device("meta"),
+                    backend="gloo")
+    with pytest.raises(ValueError, match="grid rank on meta"):
+        thp.make_stage_fns("cpu", grid=meta)
     st64 = thp.he_static(t_test_params(logN=4, beta_bits=64), 120)
-    with pytest.raises(ValueError, match="A7c"):
-        thp.make_he_mul_step(st64, "cpu", grid=grid)
+    with pytest.raises(ValueError, match="use_kernels=False"):
+        thp.make_he_mul_step(st64, "cpu", grid=grid, use_kernels=True)
     # model size 1: the one-device bundle, knobs ignored
     sf = thp.make_stage_fns("cpu", grid=single_grid("cpu"),
                             icrt_strategy="acc3", reduce_scatter_icrt=True)
     assert sf.grid is None
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+@pytest.mark.parametrize("strategy", ["matmul", "acc3", "naive"])
+def test_expected_collectives_follow_the_icrt_form(strategy, bits):
+    """The matmul form at β = 2^32 (and every strategy on the kernel
+    path) is the reference's three all-reduces a reduction; the column
+    form two: the columns, A·β/2^32 int64 words a coefficient, and
+    qsum."""
+    from repro_torch.core.context import build_icrt_tables
+    from repro_torch.dist.sharding import icrt_form
+    p = t_test_params(logN=5, beta_bits=bits)
+    grid = _grid((2, 4))
+    got = he_expected_collectives("mul", grid, p, p.logQ, batch=4,
+                                  icrt_strategy=strategy)
+    base = he_expected_collectives("mul", grid, p, p.logQ, batch=4)
+    form = icrt_form(strategy, bits)
+    assert form == ("matmul" if (strategy, bits) == ("matmul", 32)
+                    else "columns")
+    assert icrt_form(strategy, 32, use_kernels=True) == "matmul"
+    if form == "matmul":
+        assert got == base and "icrt_form" not in got
+        return
+    assert got["counts"] == {"all-reduce": 2 * 5}
+    ring = 2 * 3 / 4
+    want = 0.0
+    for n_r, npn in ((3, p.np_region1(p.logQ)), (2, p.np_region2(p.logQ))):
+        cols = build_icrt_tables(p, npn).accum_limbs * bits // 32
+        want += n_r * ring * 2 * p.N * 8 * (cols + 1)
+    assert got["wire_bytes"] == want
+    assert [r["columns"] for r in got["per_region"]] == [
+        build_icrt_tables(p, n).accum_limbs * bits // 32
+        for n in (p.np_region1(p.logQ), p.np_region2(p.logQ))]
 
 
 def test_entry_points_default_to_the_card():

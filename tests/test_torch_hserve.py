@@ -391,6 +391,12 @@ ALLOWED_GAPS = {
     ("core.context", "IcrtTables"): {
         "quot_fix": "TPU-only: the Pallas iCRT's fixed-point quotient "
                     "(no f64 on the TPU); the CUDA iCRT takes p_inv_f64"},
+    # instance attributes, not in a class's dir(): listed for the reader
+    ("hserve.frontend", "HEFrontend"): {
+        "mesh": "grid= (in-process workers share the frontend's HostGrid) "
+                "and worker_devices= (each worker process's own (1, R) "
+                "grid) take the model mesh's two roles; the port runs one "
+                "process per rank"},
     ("core.context", "GlobalTables"): {
         "betak": "built but read nowhere in the reference: the CRT fold "
                  "reads crt_tb[:, :3]",

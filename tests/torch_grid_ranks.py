@@ -213,3 +213,201 @@ def serve_rank(grid, kill_after=None) -> object:
     return {"outs": outs, "grid": stats["grid"],
             "requests": {op: d["requests"]
                          for op, d in stats["per_op"].items()}}
+
+
+# ---- every iCRT form across ranks (tests/test_torch_dist_forms.py) --------
+
+# (iCRT strategy, β bits) of the grid step besides the default: the column
+# forms of core.crt.icrt_partial, and β = 2^64, where "matmul" runs as acc3
+FORMS = [("acc3", 32), ("naive", 32), ("matmul", 64), ("acc3", 64),
+         ("naive", 64)]
+
+
+def params4(bits):
+    return test_params(logN=4, beta_bits=bits)
+
+
+def plain_keys(p, seed=3):
+    """keys(p) on the plain path (the only one at β = 2^64)."""
+    from repro_torch.core.rns import PipelineConfig
+    cfg = PipelineConfig(use_kernels=False)
+    sk, pk, evk = keygen(p, seed=seed, cfg=cfg, device="cpu")
+    rks = {r: rot_keygen(p, sk, r, cfg=cfg, device="cpu")
+           for r in sorted({1, *slot_sum_rotations(p.n_slots_max)})}
+    return sk, pk, evk, rks, conj_keygen(p, sk, cfg=cfg, device="cpu")
+
+
+def plain_ciphertexts(p, pk, n, seed0=20):
+    from repro_torch.core.rns import PipelineConfig
+    cfg = PipelineConfig(use_kernels=False)
+    rng = np.random.default_rng(5)
+    return [H.encrypt_message(rng.normal(size=4) + 1j * rng.normal(size=4),
+                              pk, p, seed=seed0 + i, cfg=cfg)
+            for i in range(n)]
+
+
+def _random_words(rng, st, batch):
+    shape = (batch, st.N, st.qlimbs)
+    if st.dtype == torch.int32:
+        w = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(
+            np.uint32).view(np.int32)
+    else:
+        w = rng.integers(0, 1 << 64, size=shape, dtype=np.uint64).view(
+            np.int64)
+    return bigint.mask_bits(torch.from_numpy(w), st.logq)
+
+
+def forms_rank(grid) -> dict:
+    """The sharded make_he_mul_step in every form of FORMS at logN 4 (at
+    logQ and two levels down), and every engine step at β = 2^64 and with
+    iCRT acc3 at β = 2^32, each against the one-rank step in this
+    process, with the recorded schedule beside he_expected_collectives."""
+    rows = he_limb_sharding(grid, B)
+    out = {"rank": grid.rank, "mul": {}, "engine": {}}
+    worlds = {}
+    for bits in (32, 64):
+        p = params4(bits)
+        worlds[bits] = (p, plain_keys(p))
+    for strategy, bits in FORMS:
+        p, (sk, pk, evk, rks, ck) = worlds[bits]
+        cts = plain_ciphertexts(p, pk, 2 * B)
+        for logq in (p.logQ, p.logQ - 2 * p.logp):
+            full = stacked([H.he_mod_down(c, p, logq) if logq < p.logQ
+                            else c for c in cts])
+            mine = hp.scatter_batch(grid, *full)
+            t1, t2, ek = hp.runtime_tables(make_context(p, logq, "cpu"), evk)
+            s1, s2, sek = hp.shard_tables(t1, t2, ek, grid, p)
+            st = hp.he_static(p, logq)
+            want = hp.make_he_mul_step(st, "cpu", icrt_strategy=strategy)(
+                t1, t2, ek, *full)
+            comm.reset(grid)
+            got = hp.make_he_mul_step(st, "cpu", grid=grid,
+                                      icrt_strategy=strategy)(
+                s1, s2, sek, *mine)
+            exp = he_expected_collectives("mul", grid, p, logq, batch=B,
+                                          icrt_strategy=strategy)
+            sched = comm.summary(grid, "step")
+            out["mul"][(strategy, bits, logq)] = {
+                "bitwise": all(torch.equal(a, b[rows])
+                               for a, b in zip(got, want)),
+                "rows": [g.clone() for g in got],
+                "counts": sched["counts"], "bytes": sched["total_bytes"],
+                "expected": (exp["counts"], exp["wire_bytes"])}
+    rng = np.random.default_rng(11)
+    for strategy, bits in (("matmul", 64), ("acc3", 32)):
+        p, (sk, pk, evk, rks, ck) = worlds[bits]
+        knobs = dict(use_kernels=False, icrt_strategy=strategy)
+        eng = OpEngine(p, "cpu", TableCache(p, evk, rks, ck, device="cpu",
+                                            grid=grid), grid=grid, **knobs)
+        eng1 = OpEngine(p, "cpu", TableCache(p, evk, rks, ck, device="cpu"),
+                        **knobs)
+        for op, logq, extra, names in _engine_cases(p, p.logQ):
+            st = hp.he_static(p, logq)
+            full = {k: _random_words(rng, st, B) for k in names}
+            mine = dict(zip(names, hp.scatter_batch(grid, *full.values())))
+            comm.reset(grid, "step")
+            got = eng.run_step((op, logq, extra), mine)
+            want = eng1.run_step((op, logq, extra), full)
+            n_slots = extra if op == "slot_sum" else None
+            exp = he_expected_collectives(op, grid, p, logq, batch=B,
+                                          n_slots=n_slots,
+                                          icrt_strategy=strategy)
+            sched = comm.summary(grid, "step")
+            out["engine"][(strategy, bits, op)] = {
+                "bitwise": all(torch.equal(a, b[rows])
+                               for a, b in zip(got, want)),
+                "counts": sched["counts"], "bytes": sched["total_bytes"],
+                "expected": (exp["counts"], exp["wire_bytes"])}
+    return out
+
+
+# ---- HEFrontend's workers on a model grid (test_torch_frontend_grid.py) ---
+
+def mul_stream(server, top, lo, n_each=4):
+    """The reference's canonical two-level mul stream (tests/
+    test_multihost.py) and a rotation; returns the rids."""
+    rids = []
+    for i in range(n_each):
+        rids.append(server.submit_mul(top[i % len(top)],
+                                      top[(i + 1) % len(top)]))
+        rids.append(server.submit_mul(lo[i % len(lo)],
+                                      lo[(i + 1) % len(lo)]))
+    rids.append(server.submit_rotate(top[0], 1))
+    return rids
+
+
+def pool4(p, pk):
+    top = plain_ciphertexts(p, pk, 4, seed0=1)
+    return top, [H.he_mod_down(c, p, p.logQ - p.logp) for c in top]
+
+
+def same_outs(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        (x.logq, x.logp) == (y.logq, y.logp) and x.ax.dtype == y.ax.dtype
+        and torch.equal(x.ax, y.ax) and torch.equal(x.bx, y.bx)
+        for x, y in zip(a, b))
+
+
+def frontend_rank(grid) -> object:
+    """Rank 0, at β = 2^32 and then 2^64: HEFrontend(grid=) with 2
+    in-process workers, worker 0 killed after its first dispatch, the
+    stream drained (requeued), the workers revived and the stream served
+    again; then, at β = 2^64, HEServer(grid=) (its keys reach the
+    followers in int64). Every result against HEServer on one device.
+    The other ranks: serve_follower, once for each of the three."""
+    from repro_torch.hserve import HEFrontend, HEServer, serve_follower
+    from repro_torch.runtime import FailureInjector
+    if grid.model_rank:
+        return [serve_follower(grid, params4(bits)) for bits in (32, 64, 64)]
+    out = {}
+    for bits in (32, 64):
+        p = params4(bits)
+        sk, pk, evk, rks, ck = plain_keys(p)
+        top, lo = pool4(p, pk)
+        one = HEServer(p, evk, {1: rks[1]}, device="cpu", batch=2,
+                       use_kernels=False)
+        rids = mul_stream(one, top, lo)
+        res = one.drain()
+        want = [res[r] for r in rids]
+        fe = HEFrontend(p, evk, {1: rks[1]}, workers=2, worker_device="cpu",
+                        grid=grid, batch=2, use_kernels=False,
+                        injector=FailureInjector(kill_worker_at={0: 1}))
+        try:
+            rids = mul_stream(fe, top, lo)
+            res = fe.drain()
+            first = [res[r] for r in rids]
+            killed = dict(fe.stats()["frontend"])
+            fe.revive_workers()
+            rids = mul_stream(fe, top, lo)
+            res = fe.drain()
+            again = [res[r] for r in rids]
+            revived = dict(fe.stats()["frontend"])
+            served = [w["served_requests"] for w in fe.stats()["workers"]]
+        finally:
+            fe.close()
+        out[bits] = {"killed": same_outs(first, want), "frontend": killed,
+                     "revived": same_outs(again, want),
+                     "alive": revived["alive"], "served": served,
+                     "dtype": str(first[0].ax.dtype),
+                     "shape": tuple(first[0].ax.shape)}
+    # β = 2^64 through HEServer(grid=): keys and operands are int64 words
+    p = params4(64)
+    sk, pk, evk, rks, ck = plain_keys(p)
+    top, lo = pool4(p, pk)
+    one = HEServer(p, evk, rks, ck, device="cpu", batch=2, use_kernels=False)
+    srv = HEServer(p, evk, rks, ck, device="cpu", batch=2, use_kernels=False,
+                   grid=grid)
+    try:
+        got = []
+        for s in (one, srv):
+            rids = mul_stream(s, top, lo, n_each=2) + [
+                s.submit_conjugate(top[1]), s.submit_slot_sum(lo[0])]
+            res = s.drain()
+            got.append([res[r] for r in rids])
+        grid_stats = srv.stats()["grid"]
+    finally:
+        srv.close()
+    out["server64"] = {"same": same_outs(*got),
+                       "all_reduces": grid_stats["step"]["counts"].get(
+                           "all-reduce", 0)}
+    return out
