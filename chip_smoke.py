@@ -206,6 +206,24 @@ Phases; any failure exits non-zero and prints no result:
    (every strategy name takes the split kernels on a grid) equal to 11b's
    default words at logQ, its schedule the matmul form's. 12b's grid step
    and 12d share one spawn of the grid.
+13. The LM serving path (``repro_torch.models``, ``configs``, ``data``,
+   ``launch.serve.generate``), which reaches no kernel of the port (the
+   reference's reaches no ``pallas_call``; checked: the launch counts do
+   not move). 13a: LM_ARCH at its full published size in bf16, weights
+   and a random prompt from LM_SEED, through ``generate`` at batch
+   LM_BATCH, prompt LM_PROMPT, gen LM_GEN, twice (the first run and a
+   warm one, tokens/s from the warm); prefill timed (median of 5) and
+   generate's decode steps one by one (median), LM_PROFILED_STEPS steps
+   traced by torch.profiler (device ms, busy share), peak
+   ``max_memory_allocated``, all beside the card's name and power limit.
+   13b, TF32 off: the same config in f32: the prompt decoded step by step
+   from an empty cache ends within 2e-2 of prefill's logits
+   (tests/test_arch_smoke.py's limit), and at B = 1, L = LM_CPU_PROMPT the
+   card's prefill logits are within 1e-3 of the same weights' on the CPU.
+   13c: every arch's ``reduced()`` config in f32, a ``SyntheticLM`` batch
+   on the card: decode from an empty cache within 2e-2 of prefill, and
+   ``generate``'s logits along its tokens within 1e-4 of the CPU's, its
+   tokens the CPU's wherever the CPU's top-2 gap exceeds 1e-3.
 
 Before the last line it prints the nvidia-smi line, one JSON line of
 per-kernel numbers (``{"kernels": [...]}``: the headline times are those
@@ -216,18 +234,20 @@ the circuit path's JSON line, the serving JSON line
 (``{"serving": {...}}``), the multi-host JSON line (``{"multihost":
 {...}}``), the bootstrap JSON line (``{"bootstrap": {...}}``), the
 β = 2^64 JSON line (``{"beta64": {...}}``), the grid JSON line
-(``{"grid": {...}}``), the phase 12 JSON line (``{"finish": {...}}``)
-and the nvidia-smi line again; the last line
-is ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
-the JAX package.
+(``{"grid": {...}}``), the phase 12 JSON line (``{"finish": {...}}``),
+the LM JSON line (``{"lm": {...}}``) and the nvidia-smi line again; the
+last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX
+and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -316,6 +336,16 @@ GRID_RUNGS = {
     "reduce_scatter_icrt": {"reduce_scatter_icrt": True},
 }
 ICRT_SPLITS = (2, 4)
+# Phase 13, the LM serving path: the served model at full size, its batch,
+# prompt and generated tokens, the seed of its weights and prompt, the
+# decode steps one trace covers, the card-against-CPU prompt of 13b, and
+# 13c's batch, prompt and generated tokens at reduced() size
+LM_ARCH = "llama3.2-1b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 128, 32
+LM_SEED = 0
+LM_PROFILED_STEPS = 8
+LM_CPU_PROMPT = 16
+LM_REDUCED_BATCH, LM_REDUCED_PROMPT, LM_REDUCED_GEN = 2, 16, 4
 SOURCES = {
     "modmul": ("kernels/csrc/modmul.cu",
                "src/repro/kernels/modmul/modmul.py:33"),
@@ -3011,6 +3041,256 @@ def drive_finish_path(torch, np, params, dev, common, evk, keys, stream,
     return out
 
 
+def close_to(got, want, tol: float) -> tuple[bool, float]:
+    """(every |got − want| ≤ tol + tol·|want|, the largest |got − want|):
+    numpy's assert_allclose at rtol = atol = tol, on the host."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    err = (got - want).abs()
+    return (bool((err <= tol + tol * want.abs()).all()),
+            float(err.max()) if err.numel() else 0.0)
+
+
+def forced_logits(model, cfg, batch: dict, toks, max_len: int) -> list:
+    """The logits ``generate`` computes along its tokens `toks`: prefill's,
+    then each decode step's fed toks[:, i] (the last token's step, whose
+    logits choose nothing, is left out)."""
+    from repro_torch.models import decode_step, prefill
+    logits, cache = prefill(model, batch, cfg, max_len)
+    out = [logits]
+    L = batch["tokens"].shape[1]
+    for i in range(toks.shape[1] - 1):
+        logits, cache = decode_step(model, cache, toks[:, i: i + 1], L + i,
+                                    cfg)
+        out.append(logits)
+    return out
+
+
+def decode_from_empty(model, cfg, batch: dict, max_len: int, cache=None):
+    """The last logits of decoding batch["tokens"] step by step from an
+    empty cache (the encoder-decoder's cross-attention memory taken from
+    prefill's `cache`, as the reference's test does)."""
+    from repro_torch.models import decode_step, init_cache
+    toks = batch["tokens"]
+    B, L = toks.shape
+    dev = toks.device
+    if cfg.enc_dec:
+        empty = init_cache(cfg, B, max_len, enc_len=cache["dec"][0]["xk"]
+                           .shape[1], device=dev)
+        state = {"dec": [{**c2, "xk": c1["xk"], "xv": c1["xv"]}
+                         for c1, c2 in zip(cache["dec"], empty["dec"])]}
+    else:
+        state = init_cache(cfg, B, max_len, device=dev)
+    logits = None
+    for t in range(L):
+        logits, state = decode_step(model, state, toks[:, t: t + 1], t, cfg)
+    return logits
+
+
+def drive_lm_path(torch, np, dev, common, card: str) -> dict:
+    """Phase 13: the LM serving path (see the module docstring)."""
+    import dataclasses
+    from repro_torch.configs.registry import ARCHS, get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decode_step, init_params, prefill
+
+    phase_t0 = time.perf_counter()
+    out: dict = {"card": card}
+    before = dict(common.LAUNCHES)
+    cpu = torch.device("cpu")
+    cfg = get_arch(LM_ARCH)
+    B, L, G = LM_BATCH, LM_PROMPT, LM_GEN
+    max_len = L + G + 8             # the command line's
+    tokens = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, size=(B, L)).astype(np.int32)).to(dev)
+
+    # ---- 13a: the full config in bf16 through generate ------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # what earlier phases still hold
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        LM_SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    walls = []
+    for _ in range(2):              # the first run, then a warm one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(model, cfg, tokens, G, max_len)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    require(toks.shape == (B, G) and toks.dtype == torch.int32
+            and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"13a: generate gave {tuple(toks.shape)} {toks.dtype}")
+    prefill_ms, prefill_runs = median_ms(
+        torch, lambda: prefill(model, {"tokens": tokens}, cfg, max_len), 5)
+    logits, cache = prefill(model, {"tokens": tokens}, cfg, max_len)
+    require(bool(torch.isfinite(logits).all()), "13a: prefill logits")
+    step_ms = []
+    for i in range(G):              # generate's steps, each timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = decode_step(model, cache, toks[:, i: i + 1], L + i,
+                                    cfg)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    require(bool(torch.isfinite(logits).all()), "13a: decode logits")
+
+    def decode_window():
+        for i in range(LM_PROFILED_STEPS):
+            decode_step(model, cache, toks[:, i: i + 1], L + i, cfg)
+
+    trace = profile(torch, decode_window)
+    decode_ms = statistics.median(step_ms)
+    out["full"] = {
+        "config": f"{LM_ARCH} (configs/llama3_2_1b.py) bf16, weights from "
+                  f"seed {LM_SEED}",
+        "batch": B, "prompt": L, "gen": G, "params": n_params,
+        "param_bytes": param_bytes, "init_s": init_s,
+        "generate_s": walls, "tokens_per_s": B * G / walls[1],
+        "prefill_ms": prefill_ms, "prefill_ms_runs": prefill_runs,
+        "decode_ms_median": decode_ms, "decode_ms": step_ms,
+        "decode_tokens_per_s": B * 1e3 / decode_ms,
+        # computed, not measured: the weights read once a step at the
+        # memory rate
+        "decode_bound_ms_computed": param_bytes / HBM_BYTES_PER_S * 1e3,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "held_before_bytes": held,
+        "peak_above_held_bytes": torch.cuda.max_memory_allocated() - held,
+        "decode_profile": {k: trace[k] for k in (
+            "wall_ms", "device_ms", "busy_share", "device_events", "top")},
+        "profiled_steps": LM_PROFILED_STEPS,
+        # the decode loop is host-bound: what else this process runs
+        "host_loadavg": os.getloadavg(),
+        "python_threads": threading.active_count(),
+        "first_tokens": toks[0, :8].tolist()}
+    print(f"13a {LM_ARCH} full bf16 ({n_params / 1e9:.3f} B params, "
+          f"{param_bytes / 1e9:.2f} GB) B={B} prompt={L} gen={G}: generate "
+          f"{walls[0]:.2f} s first, {walls[1]:.3f} s warm "
+          f"({B * G / walls[1]:.1f} tok/s); prefill {prefill_ms:.2f} ms; "
+          f"decode {decode_ms:.2f} ms a step (median of {G}; the weights' "
+          f"bound {param_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); device busy "
+          f"{trace['busy_share']:.1%} over {LM_PROFILED_STEPS} steps "
+          f"({trace['device_events']} device events); peak "
+          f"{(torch.cuda.max_memory_allocated() - held) / 2 ** 30:.2f} GiB "
+          f"above the {held / 2 ** 30:.2f} GiB earlier phases hold; {card}",
+          flush=True)
+    del model, cache, logits
+    torch.cuda.empty_cache()
+
+    # ---- 13b: the full width in f32, TF32 off ---------------------------
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    activation_dtype="float32")
+        model = init_params(cfg32, torch.Generator(device=dev).manual_seed(
+            LM_SEED), dev)
+        batch = {"tokens": tokens}
+        pre, _ = prefill(model, batch, cfg32, max_len)
+        t0 = time.perf_counter()
+        dec = decode_from_empty(model, cfg32, batch, max_len)
+        torch.cuda.synchronize()
+        ok, err = close_to(dec, pre, 2e-2)
+        require(ok, f"13b: {L} decode steps differ from prefill by {err}")
+        small = {"tokens": tokens[:1, :LM_CPU_PROMPT]}
+        card_logits, _ = prefill(model, small, cfg32, LM_CPU_PROMPT)
+        model = model.to(cpu)
+        t1 = time.perf_counter()
+        cpu_logits, _ = prefill(model, {"tokens": small["tokens"].cpu()},
+                                cfg32, LM_CPU_PROMPT)
+        cpu_s = time.perf_counter() - t1
+        ok2, err2 = close_to(card_logits, cpu_logits, 1e-3)
+        require(ok2, f"13b: the card's prefill differs from the CPU's by "
+                     f"{err2}")
+        out["f32"] = {"decode_vs_prefill_max_abs_err": err,
+                      "decode_s": t1 - t0, "tol": 2e-2,
+                      "card_vs_cpu_max_abs_err": err2, "cpu_tol": 1e-3,
+                      "cpu_prefill_s": cpu_s, "cpu_batch": 1,
+                      "cpu_prompt": LM_CPU_PROMPT}
+        print(f"13b {LM_ARCH} full f32: {L} decode steps == prefill "
+              f"(max |err| {err:.2e} ≤ 2e-2); the card's prefill at B=1 "
+              f"L={LM_CPU_PROMPT} == the CPU's (max |err| {err2:.2e} ≤ 1e-3; "
+              f"CPU {cpu_s:.1f} s)", flush=True)
+        del model
+        torch.cuda.empty_cache()
+
+        # ---- 13c: every architecture at reduced(), card against CPU -----
+        archs = {}
+        for arch in ARCHS:
+            rcfg = get_arch(arch).reduced()
+            model = init_params(rcfg, torch.Generator(device=dev)
+                                .manual_seed(LM_SEED), dev)
+            twin = init_params(rcfg, torch.Generator().manual_seed(0), cpu)
+            twin.load_state_dict(model.state_dict())
+            data = SyntheticLM(rcfg, LM_REDUCED_BATCH, LM_REDUCED_PROMPT,
+                               seed=LM_SEED, device=dev)
+            batch = {k: v for k, v in data.batch_at(0).items()
+                     if k != "labels"}
+            host = {k: v.cpu() for k, v in batch.items()}
+            extra = {k: v for k, v in batch.items() if k != "tokens"}
+            rmax = LM_REDUCED_PROMPT + LM_REDUCED_GEN + 8
+            pre, cache = prefill(model, batch, rcfg, rmax)
+            dec = decode_from_empty(model, rcfg, batch, rmax, cache)
+            ok, err_dec = close_to(dec, pre, 2e-2)
+            require(ok, f"13c {arch}: decode differs from prefill by "
+                        f"{err_dec}")
+            toks = generate(model, rcfg, batch["tokens"], LM_REDUCED_GEN,
+                            rmax, batch_extra=extra)
+            mine = forced_logits(model, rcfg, batch, toks, rmax)
+            cpu_toks = generate(twin, rcfg, host["tokens"], LM_REDUCED_GEN,
+                                rmax, batch_extra={k: v for k, v in
+                                                   host.items()
+                                                   if k != "tokens"})
+            theirs = forced_logits(twin, rcfg, host, toks.cpu(), rmax)
+            err_cpu, ties = 0.0, 0
+            for i, (m, w) in enumerate(zip(mine, theirs)):
+                ok, e = close_to(m, w, 1e-4)
+                require(ok, f"13c {arch}: step {i}'s logits differ from the "
+                            f"CPU's by {e}")
+                err_cpu = max(err_cpu, e)
+                top2 = w[:, -1].topk(2, dim=-1).values
+                clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+                ties += int((~clear).sum())
+                require(torch.equal(toks[:, i].cpu()[clear],
+                                    w[:, -1].argmax(-1).to(torch.int32)
+                                    [clear]),
+                        f"13c {arch}: token {i} differs from the CPU's")
+            archs[arch] = {"decode_vs_prefill": err_dec,
+                           "card_vs_cpu": err_cpu,
+                           "tokens_equal": bool(torch.equal(toks.cpu(),
+                                                            cpu_toks)),
+                           "near_ties": ties}
+            del model, twin
+        out["reduced"] = archs
+        worst = {k: max(a[k] for a in archs.values())
+                 for k in ("card_vs_cpu", "decode_vs_prefill")}
+        same = sum(a["tokens_equal"] for a in archs.values())
+        ties = sum(a["near_ties"] for a in archs.values())
+        print(f"13c every arch at reduced() f32 on the card == the CPU "
+              f"(max |err| {worst['card_vs_cpu']:.2e} ≤ 1e-4; tokens equal "
+              f"in {same}/{len(archs)}, near ties {ties}); decode == "
+              f"prefill (max |err| {worst['decode_vs_prefill']:.2e} ≤ 2e-2)",
+              flush=True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    launched_here = {k: v - before[k] for k, v in common.LAUNCHES.items()
+                     if v - before[k]}
+    # no pallas_call lies on the LM path, so no kernel of the port does
+    require(not launched_here, f"13: the LM path launched {launched_here}")
+    out["port_kernel_launches"] = launched_here
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"phase 13 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def profile(torch, fn) -> dict:
     """Device time by kernel name over one call of fn, the busy share, and
     the device time of the port's kernels (in all and by kernel) against
@@ -3111,6 +3391,7 @@ def main() -> int:
     finish = drive_finish_path(torch, np, params, dev, common, evk,
                                circuit["keys"], stream, serving, multihost,
                                beta64, grid)
+    lm = drive_lm_path(torch, np, dev, common, card)
     per_he_mul = {key: sum(n * r[key] for k, counts in
                            HE_MUL_SHAPE_LAUNCHES.items()
                            for n, r in zip(counts, per_kernel[k]))
@@ -3238,6 +3519,7 @@ def main() -> int:
                   "12c boot_params(logN=4, beta_bits=64)",
         "note": f"{GRID_RANKS} ranks share one card over gloo: not a "
                 f"scaling measurement", **finish, "card": card}}))
+    print(json.dumps({"lm": lm}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,17 @@ as uint32 or uint64. Both sides can then run HE Mul on the same operands.
 A uint64 array is a β = 2^64 word array and becomes int64 bit patterns;
 on the way back an int64 tensor is a word only at β = 2^64, so
 :func:`to_numpy` takes the word size.
+
+The LM side's pair, :func:`lm_params_from_numpy` and
+:func:`lm_params_to_numpy`, carries a model's parameter tree (numpy arrays
+in the JAX package's layout: ``layers`` stacked for ``lax.scan``,
+``groups`` + ``tail`` for a hybrid pattern, ``layers_list``, or ``enc`` /
+``dec``) to the port's :class:`~repro_torch.models.LM` and back;
+:func:`lm_cache_from_numpy` and :func:`lm_cache_to_numpy` do the same for
+a decode cache (``stacked``, ``groups`` + ``tail``, ``list`` or ``dec``).
+A bfloat16 array (``ml_dtypes.bfloat16``) becomes a ``torch.bfloat16``
+tensor of the same bits. Weights keep their ``(d_in, d_out)``
+orientation, so nothing is transposed.
 """
 
 from __future__ import annotations
@@ -19,7 +30,8 @@ import torch
 
 from repro_torch.core.context import resolve_device
 
-__all__ = ["from_numpy", "to_numpy"]
+__all__ = ["from_numpy", "to_numpy", "lm_params_from_numpy",
+           "lm_params_to_numpy", "lm_cache_from_numpy", "lm_cache_to_numpy"]
 
 
 def from_numpy(cls, fields: dict, device: str | torch.device = "cuda"):
@@ -57,3 +69,175 @@ def to_numpy(obj, beta_bits: int = 32) -> dict:
             v = a.view(words[a.dtype]) if a.dtype in words else a
         out[f.name] = v
     return out
+
+
+# ---- the LM side -----------------------------------------------------------
+
+def _lm_tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a.view(np.int16))).to(device) \
+            .view(torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _lm_array(t: torch.Tensor) -> np.ndarray:
+    """A copy of `t` on the host (decode writes caches in place)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return np.array(t.view(torch.int16).numpy()).view(ml_dtypes.bfloat16)
+    return np.array(t.numpy())
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    """{dotted path: leaf} of nested dicts and lists."""
+    items = (tree.items() if isinstance(tree, dict)
+             else enumerate(tree) if isinstance(tree, (list, tuple))
+             else None)
+    if items is None:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def _unflatten(flat: dict, lists: tuple = ()):
+    """Nested dicts from dotted paths; a node whose keys are all digits is a
+    list; each name in `lists` is a top-level list even when empty."""
+    root: dict = {name: {} for name in lists}
+    for path, v in flat.items():
+        node = root
+        *heads, last = path.split(".")
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = v
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    out = listify(root)
+    return {k: ([] if k in lists and v == {} else v) for k, v in out.items()}
+
+
+def _groups(cfg) -> tuple[int, int]:
+    """(pattern length G, groups) of a hybrid stack; its tail follows."""
+    g = len(cfg.layer_pattern)
+    return g, cfg.n_layers // g
+
+
+def _layout(cfg) -> str:
+    if cfg.uniform_layers and cfg.scan_layers:
+        return "stacked"
+    if cfg.layer_pattern and cfg.scan_layers:
+        return "groups"
+    return "list"
+
+
+def _to_per_layer(flat: dict, cfg, stacked: str, listed: str, out: str
+                  ) -> dict:
+    """The reference's names -> `out`.i.rest, one entry a layer."""
+    res = {}
+    for name, a in flat.items():
+        head, _, rest = name.partition(".")
+        if head == stacked:
+            for i in range(a.shape[0]):
+                res[f"{out}.{i}.{rest}"] = a[i]
+        elif head == "groups":
+            g, _ = _groups(cfg)
+            sub, _, rest = rest.partition(".")
+            for n in range(a.shape[0]):
+                res[f"{out}.{n * g + int(sub[3:])}.{rest}"] = a[n]
+        elif head == "tail":
+            g, n_groups = _groups(cfg)
+            i, _, rest = rest.partition(".")
+            res[f"{out}.{n_groups * g + int(i)}.{rest}"] = a
+        elif head == listed:
+            res[f"{out}.{rest}"] = a
+        else:
+            res[name] = a
+    return res
+
+
+def _from_per_layer(flat: dict, cfg, stacked: str, listed: str, out: str
+                    ) -> dict:
+    """The inverse of :func:`_to_per_layer` in `cfg`'s layout."""
+    layout = _layout(cfg)
+    res, per = {}, {}
+    for name, a in flat.items():
+        head, _, rest = name.partition(".")
+        if head != out:
+            res[name] = a
+            continue
+        i, _, rest = rest.partition(".")
+        per[(int(i), rest)] = a
+    if layout == "list":
+        res.update({f"{listed}.{i}.{rest}": a for (i, rest), a in per.items()})
+        return res
+    if layout == "stacked":
+        for rest in {r for _, r in per}:
+            res[f"{stacked}.{rest}"] = np.stack(
+                [per[(i, rest)] for i in range(cfg.n_layers)])
+        return res
+    g, n_groups = _groups(cfg)
+    for (i, rest), a in per.items():
+        if i >= n_groups * g:
+            res[f"tail.{i - n_groups * g}.{rest}"] = a
+        elif i < g:
+            res[f"groups.sub{i}.{rest}"] = np.stack(
+                [per[(n * g + i, rest)] for n in range(n_groups)])
+    return res
+
+
+def lm_params_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda"):
+    """The port's :class:`~repro_torch.models.LM` holding the JAX package's
+    parameter tree `tree` (numpy arrays in any of its layouts) on
+    `device`. Every name, shape and dtype must match the model's."""
+    from repro_torch.models import init_params
+    dev = resolve_device(device)
+    flat = _to_per_layer(_flatten(tree), cfg, "layers", "layers_list",
+                         "layers")
+    model = init_params(cfg, torch.Generator(device=dev), dev)
+    own = model.state_dict()
+    if set(flat) != set(own):
+        raise ValueError(f"parameter names differ: missing "
+                         f"{sorted(set(own) - set(flat))}, unexpected "
+                         f"{sorted(set(flat) - set(own))}")
+    with torch.no_grad():
+        for name, t in own.items():
+            src = _lm_tensor(flat[name], dev)
+            if src.shape != t.shape or src.dtype != t.dtype:
+                raise ValueError(f"{name}: {tuple(src.shape)} {src.dtype} "
+                                 f"against {tuple(t.shape)} {t.dtype}")
+            t.copy_(src)
+    return model
+
+
+def lm_params_to_numpy(model, cfg) -> dict:
+    """The JAX package's parameter tree of `model`, in `cfg`'s layout."""
+    flat = {k: _lm_array(v) for k, v in model.state_dict().items()}
+    flat = _from_per_layer(flat, cfg, "layers", "layers_list", "layers")
+    return _unflatten(flat, ("tail",) if _layout(cfg) == "groups" else ())
+
+
+def lm_cache_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda"
+                        ) -> dict:
+    """The port's cache (``{"list": [...]}`` or ``{"dec": [...]}``) from
+    the JAX package's cache `tree` of numpy arrays, on `device`."""
+    dev = resolve_device(device)
+    flat = _to_per_layer(_flatten(tree), cfg, "stacked", "list", "list")
+    return _unflatten({k: _lm_tensor(a, dev) for k, a in flat.items()})
+
+
+def lm_cache_to_numpy(cache: dict, cfg) -> dict:
+    """The JAX package's cache tree of the port's `cache`, in `cfg`'s
+    layout."""
+    flat = {k: _lm_array(v) for k, v in _flatten(cache).items()}
+    flat = _from_per_layer(flat, cfg, "stacked", "list", "list")
+    return _unflatten(flat, ("tail",) if _layout(cfg) == "groups" else ())

@@ -1,19 +1,29 @@
-"""The paper's own workload as a serving entry point: a batched HE
-request stream through :class:`repro_torch.hserve.HEServer` (queue →
-level-aware table cache → engine → metrics) on one device or across the
-model ranks of a grid, or through the multi-host tier
-(:class:`repro_torch.hserve.HEFrontend` and its workers), driven by a
-:class:`repro_torch.client.HESession`.
+"""Serving drivers: batched LM prefill + greedy decode, and the paper's
+own workload — a batched HE request stream through
+:class:`repro_torch.hserve.HEServer` (queue → level-aware table cache →
+engine → metrics) on one device or across the model ranks of a grid, or
+through the multi-host tier (:class:`repro_torch.hserve.HEFrontend` and
+its workers), driven by a :class:`repro_torch.client.HESession`.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+        --preset smoke|full --batch 4 --prompt-len 32 --gen 16 \\
+        [--seed 0] [--device cuda]
     PYTHONPATH=src python -m repro_torch.launch.serve --he --batch 4 \\
         --requests 24 --levels 3 --rotations 4 --conjugations 2 \\
         [--plain-frac 0.25] [--circuit] [--schedule] [--max-age-s 0.05] \\
         [--overlap] [--no-kernels] [--trace T.json] [--profile-stages] \\
         [--metrics M.json] [--traced 2] [--check off|warn|error] \\
-        [--workers 2 --transport inproc|subprocess] [--bootstrap [N]] \
+        [--workers 2 --transport inproc|subprocess] [--bootstrap [N]] \\
         [--model-shards R] [--device cuda]
 
-This is the JAX package's ``launch/serve.py`` ``serve_he``, at its SMOKE
+Without ``--he`` the LM path runs, as in the JAX package's
+``launch/serve.py``: the ``--arch`` model (``--preset smoke`` its
+``reduced()`` config, ``full`` the published one) with weights drawn from
+``--seed``, a random prompt, :func:`generate`. It runs on one device;
+``--model-shards`` above 1 is refused there (the LM's parameter sharding
+rules come with the training step).
+
+With ``--he`` this is the JAX package's ``serve_he``, at its SMOKE
 parameters (``boot_params()`` with ``--bootstrap``). ``--model-shards R``
 spawns a grid of R model ranks (data size 1; ``launch.mesh.spawn_grid``)
 on the card, or on the CPU with ``--device cpu``: rank 0 serves as
@@ -23,19 +33,21 @@ frontend, its W in-process workers spread over the grid (the
 reference's ``HEFrontend(mesh=make_host_mesh(model=R))``); with
 ``--transport subprocess`` no grid is spawned here: each worker process
 is rank 0 of its own R-rank grid (``worker_devices=R``). On one card the
-ranks share it (gloo). Not ported yet: the LM serving path.
+ranks share it (gloo).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.boot import boot_params
 from repro_torch.client import HESession
+from repro_torch.configs.registry import get_arch
 from repro_torch.core import heaan as H
 from repro_torch.core.context import resolve_device
 from repro_torch.core.keys import keygen
@@ -43,12 +55,31 @@ from repro_torch.core.params import HEParams, test_params
 from repro_torch.hserve import HEFrontend, degree4_demo_circuit
 from repro_torch.hserve.server import serve_follower
 from repro_torch.launch.mesh import spawn_grid
+from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.models.config import ModelConfig
 from repro_torch.obs import Tracer
 
-__all__ = ["SMOKE", "serve_he", "main"]
+__all__ = ["SMOKE", "generate", "serve_he", "main"]
 
 # the reference's smoke parameter set (configs/heaan_mul.py SMOKE)
 SMOKE: HEParams = test_params(logN=5, beta_bits=32)
+
+
+@torch.no_grad()
+def generate(model, cfg: ModelConfig, tokens: torch.Tensor, gen_steps: int,
+             max_len: int, batch_extra: dict | None = None) -> torch.Tensor:
+    """Greedy generation. tokens: (B, L) prompt. Returns (B, gen_steps)
+    int32 tokens, on the device of `model` and `tokens`."""
+    B, L = tokens.shape
+    batch = {"tokens": tokens, **(batch_extra or {})}
+    logits, cache = prefill(model, batch, cfg, max_len)
+    out = []
+    tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+    for i in range(gen_steps):
+        out.append(tok)
+        logits, cache = decode_step(model, cache, tok, L + i, cfg)
+        tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+    return torch.cat(out, dim=1)
 
 
 def serve_he(batch: int, requests: int = 0, levels: int = 1,
@@ -333,9 +364,18 @@ def _serve(session, params, requests, levels, rotations, conjugations,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--he", action="store_true", required=True,
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    help="the LM to serve (repro_torch.configs.ARCHS)")
+    ap.add_argument("--preset", default="smoke", choices=["smoke", "full"],
+                    help="smoke: the arch's reduced() config; full: its "
+                         "published size")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16,
+                    help="tokens to generate greedily after the prompt")
+    ap.add_argument("--he", action="store_true",
                     help="serve a batched multi-level HE request stream "
-                         "(the only workload of the port so far)")
+                         "(queue → level-aware table cache → engine) "
+                         "instead of an LM")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--requests", type=int, default=0,
                     help="HE requests to stream (default 2·batch+1, which "
@@ -421,6 +461,9 @@ def main(argv=None) -> None:
                     help="device to serve on (default cuda; cpu runs the "
                          "plain torch versions)")
     args = ap.parse_args(argv)
+    if not args.he:
+        _serve_lm(args)
+        return
     stats = serve_he(args.batch, requests=args.requests, levels=args.levels,
                      rotations=args.rotations,
                      conjugations=args.conjugations,
@@ -495,6 +538,45 @@ def main(argv=None) -> None:
     print(f"  max_err {stats['max_err']:.2e}")
     if not stats["max_err"] < 1e-2:
         raise SystemExit("HE serving pipeline diverged")
+
+
+def _serve_lm(args) -> None:
+    """The LM path of :func:`main`: the reference's, on `args.device`."""
+    if args.model_shards > 1:
+        raise SystemExit(
+            "--model-shards with the LM path needs the parameter sharding "
+            "rules of dist/sharding.py, which come with the LM training "
+            "step; serve the LM on one device")
+    cfg = get_arch(args.arch)
+    if args.preset == "smoke":
+        cfg = cfg.reduced()
+    dev = resolve_device(args.device)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed), dev)
+    rng = np.random.default_rng(args.seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(args.batch, args.prompt_len)
+    ).astype(np.int32)).to(dev)
+    extra = {}
+    if cfg.enc_dec:
+        extra["frames"] = torch.from_numpy(rng.normal(
+            size=(args.batch, 2 * args.prompt_len, cfg.d_model)
+        ).astype(np.float32)).to(dev)
+    if cfg.frontend == "vision":
+        extra["patch_embeds"] = torch.from_numpy(rng.normal(
+            size=(args.batch, cfg.n_frontend_tokens, cfg.d_model)
+        ).astype(np.float32)).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = generate(model, cfg, tokens, args.gen,
+                   args.prompt_len + args.gen + 8, batch_extra=extra)
+    out = out.cpu()                 # waits for the device
+    dt = time.perf_counter() - t0
+    print(f"arch={args.arch} preset={args.preset} generated "
+          f"{tuple(out.shape)} on {dev} in {dt:.2f}s "
+          f"({args.batch * args.gen / dt:.1f} tok/s, first run)")
+    print(f"  first tokens: {out[0, :8].tolist()}")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,132 @@
+"""Mamba-1 selective state-space block (falcon-mamba architecture).
+
+x -> in_proj -> [x, z]; x -> causal depthwise conv1d -> SiLU ->
+selective scan (input-dependent Δ, B, C; diagonal A) -> ·SiLU(z) -> out_proj.
+
+The scan is the reference's sequential recurrence, one step a position.
+The JAX package cuts it into chunks of ``cfg.ssm_chunk`` only so that
+training can rematerialize each chunk; the steps and their arithmetic are
+the same. Decode carries the recurrent state and a (conv-1)-deep input
+tail.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.layers import Linear, dense, init_linear, normal
+
+__all__ = ["init_ssm", "ssm_block", "ssm_decode_step", "init_ssm_state",
+           "SSM", "softplus"]
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + eˣ) without F.softplus's switch to the identity above 20
+    (jax.nn.softplus has none)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+class SSM(nn.Module):
+    """``in_proj``, ``conv_w`` (K, DI), ``conv_b``, ``x_proj``,
+    ``dt_proj``, the f32 ``A_log`` (DI, S) and ``D`` (DI,), ``out_proj``."""
+
+    def __init__(self, in_proj: Linear, conv_w, conv_b, x_proj: Linear,
+                 dt_proj: Linear, A_log, D, out_proj: Linear):
+        super().__init__()
+        self.in_proj = in_proj
+        self.conv_w, self.conv_b = nn.Parameter(conv_w), nn.Parameter(conv_b)
+        self.x_proj, self.dt_proj = x_proj, dt_proj
+        self.A_log, self.D = nn.Parameter(A_log), nn.Parameter(D)
+        self.out_proj = out_proj
+
+
+def init_ssm(gen: torch.Generator, cfg) -> SSM:
+    D, DI, R, S = cfg.d_model, cfg.d_inner, cfg.dt_rank, cfg.ssm_state
+    dt, dev = cfg.pdt, gen.device
+    A = torch.arange(1, S + 1, dtype=torch.float32, device=dev)[None, :] \
+        .repeat(DI, 1)
+    return SSM(
+        in_proj=init_linear(gen, D, 2 * DI, dt),
+        conv_w=(normal(gen, (cfg.ssm_conv, DI))
+                * (cfg.ssm_conv * DI) ** -0.5).to(dt),
+        conv_b=torch.zeros((DI,), dtype=dt, device=dev),
+        x_proj=init_linear(gen, DI, R + 2 * S, dt),
+        dt_proj=init_linear(gen, R, DI, dt, bias=True),
+        A_log=torch.log(A),                        # f32 (stability)
+        D=torch.ones((DI,), dtype=torch.float32, device=dev),
+        out_proj=init_linear(gen, DI, D, dt, scale=DI ** -0.5),
+    )
+
+
+def _conv1d_causal(w, b, x, tail=None):
+    """Depthwise causal conv. x: (B, L, DI); w: (K, DI); tail: (B, K-1, DI)."""
+    K = w.shape[0]
+    if tail is None:
+        tail = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                           device=x.device)
+    xp = torch.cat([tail, x], dim=1)
+    out = sum(xp[:, i: i + x.shape[1]] * w[i][None, None, :].to(x.dtype)
+              for i in range(K))
+    return out + b.to(x.dtype), xp[:, -(K - 1):]
+
+
+def _selective_scan(u, delta, Bc, Cc, A, D, h0):
+    """u: (B, L, DI); delta: (B, L, DI); Bc/Cc: (B, L, S); A: (DI, S).
+
+    h_t = exp(Δ_t A)·h_{t-1} + Δ_t·B_t·u_t ;  y_t = C_t·h_t + D·u_t.
+    Returns (y (B, L, DI) f32, h_final (B, DI, S) f32).
+    """
+    h = h0
+    negA = (-A)[None]
+    ys = []
+    for t in range(u.shape[1]):
+        dt_ = delta[:, t]
+        dA = torch.exp(dt_[..., None] * negA)                # (B, DI, S)
+        dBu = dt_[..., None] * Bc[:, t, None, :] * u[:, t, :, None]
+        h = dA * h + dBu
+        ys.append(torch.einsum("bds,bs->bd", h, Cc[:, t]))
+    y = torch.stack(ys, dim=1)
+    return y + u * D[None, None, :], h
+
+
+def _ssm_inner(p: SSM, x, cfg, conv_tail=None, h0=None):
+    B, L, _ = x.shape
+    DI, R, S = cfg.d_inner, cfg.dt_rank, cfg.ssm_state
+    xz = dense(p.in_proj, x)
+    xs, z = torch.chunk(xz, 2, dim=-1)
+    xs, new_tail = _conv1d_causal(p.conv_w, p.conv_b, xs, conv_tail)
+    xs = F.silu(xs.float())
+    proj = dense(p.x_proj, xs.to(x.dtype)).float()
+    dt_in, Bc, Cc = torch.split(proj, [R, S, S], dim=-1)
+    delta = softplus(dt_in @ p.dt_proj.w.float() + p.dt_proj.b.float())
+    A = torch.exp(p.A_log)
+    if h0 is None:
+        h0 = torch.zeros((B, DI, S), dtype=torch.float32, device=x.device)
+    y, h = _selective_scan(xs, delta, Bc, Cc, A, p.D, h0)
+    y = (y * F.silu(z.float())).to(x.dtype)
+    return dense(p.out_proj, y), new_tail, h
+
+
+def ssm_block(p: SSM, x, cfg):
+    out, _, _ = _ssm_inner(p, x, cfg)
+    return out
+
+
+def init_ssm_state(cfg, batch: int, dtype: torch.dtype, *,
+                   device: torch.device) -> dict:
+    return {
+        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+                         dtype=torch.float32, device=device),
+        "conv_tail": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
+                                 dtype=dtype, device=device),
+    }
+
+
+def ssm_decode_step(p: SSM, x_t, state: dict, cfg):
+    """x_t: (B, 1, D). Returns (out (B, 1, D), new state)."""
+    out, tail, h = _ssm_inner(p, x_t, cfg, conv_tail=state["conv_tail"],
+                              h0=state["h"])
+    return out, {"h": h, "conv_tail": tail}

@@ -937,3 +937,61 @@ def test_cuda_grid_step_equals_one_rank_kernel_step(dev):
         assert res["launches"]["icrt_partial"] == 5
         assert res["launches"]["icrt_finish"] == 5
         assert "icrt" not in res["launches"]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "whisper-base"])
+def test_cuda_lm_reduced_matches_the_cpu(dev, arch, monkeypatch):
+    """A reduced() LM on the card against the same weights on the CPU,
+    TF32 off: prefill's logits and cache, two decode steps, and generate's
+    tokens (equal wherever the CPU's top-2 gap exceeds 1e-3), within 1e-4;
+    no kernel of the port launches on the LM path."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decode_step, init_params, prefill
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = get_arch(arch).reduced()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    twin = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    twin.load_state_dict(model.state_dict())
+    batch = SyntheticLM(cfg, 2, 16, seed=1, device=dev).batch_at(0)
+    batch.pop("labels")
+    host = {k: v.cpu() for k, v in batch.items()}
+
+    def close(a, b):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+    common.reset_launches()
+    logits, cache = prefill(model, batch, cfg, 24)
+    want, wcache = prefill(twin, host, cfg, 24)
+    close(logits, want)
+    for a, b in zip(cache_leaves(cache), cache_leaves(wcache)):
+        close(a, b)
+    for i in range(2):
+        tok = batch["tokens"][:, i: i + 1]
+        logits, cache = decode_step(model, cache, tok, 16 + i, cfg)
+        want, wcache = decode_step(twin, wcache, tok.cpu(), 16 + i, cfg)
+        close(logits, want)
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    toks = generate(model, cfg, batch["tokens"], 4, 24, batch_extra=extra)
+    # the CPU's logits along the card's tokens
+    want, wcache = prefill(twin, host, cfg, 24)
+    for i in range(4):
+        top2 = want[:, -1].topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+        assert torch.equal(toks[:, i].cpu()[clear],
+                           want[:, -1].argmax(-1).to(torch.int32)[clear])
+        want, wcache = decode_step(twin, wcache, toks[:, i: i + 1].cpu(),
+                                   16 + i, cfg)
+    torch.cuda.synchronize()
+    assert not any(common.LAUNCHES.values())
+
+
+def cache_leaves(tree) -> list:
+    """The tensors of a nested dict/list cache, in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in cache_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in cache_leaves(v)]
+    return [tree]

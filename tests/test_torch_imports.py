@@ -54,6 +54,12 @@ def test_no_module_of_the_port_imports_jax_or_repro():
                  "repro_torch.launch.mesh", "repro_torch.dist.sharding",
                  "repro_torch.dist.comm", "repro_torch.dist.record",
                  "repro_torch.dist.__main__",
-                 "repro_torch.analysis.manifest"):
+                 "repro_torch.analysis.manifest",
+                 "repro_torch.models.model", "repro_torch.models.attention",
+                 "repro_torch.models.moe", "repro_torch.models.ssm",
+                 "repro_torch.models.rglru", "repro_torch.models.blocks",
+                 "repro_torch.configs.registry",
+                 "repro_torch.configs.llama3_2_1b",
+                 "repro_torch.data.synthetic"):
         assert name in got["modules"]
     assert got["bad"] == []

@@ -355,5 +355,8 @@ def test_serve_he_smoke_on_the_cpu(tmp_path):
     assert st["trace_events"] > 0
     with open(metrics) as f:
         assert json.load(f)["counters"]["serve.requests"] > 0
-    with pytest.raises(SystemExit):
-        main(["--batch", "2"])                 # --he is required
+    # without --he the LM path runs, on the card unless --device says
+    # otherwise: it raises where there is none
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["--batch", "2"])
