@@ -225,6 +225,39 @@ Phases; any failure exits non-zero and prints no result:
    ``generate``'s logits along its tokens within 1e-4 of the CPU's, its
    tokens the CPU's wherever the CPU's top-2 gap exceeds 1e-3.
 
+14. The LM training path (``repro_torch.optim``, ``ckpt``,
+   ``dist.collectives``, ``launch.train``), which reaches no kernel of the
+   port either (the reference's reaches no ``pallas_call``; checked: the
+   launch counts do not move). The Trainer runs under
+   ``torch.use_deterministic_algorithms(True)``, so this script sets
+   ``CUBLAS_WORKSPACE_CONFIG`` before torch is imported. 14a: LM_ARCH at
+   its full published size (bf16 parameters, f32 moments, weights from
+   LM_SEED) through ``Trainer(TrainConfig(batch=TRAIN_BATCH,
+   seq_len=TRAIN_SEQ, steps=TRAIN_STEPS, warmup_steps=2))``: every loss
+   finite, every leaf's first moment nonzero, every parameter changed but
+   the bf16 norm scales still at 1.0 (bf16's spacing there is over ten
+   times AdamW's largest step at peak_lr, so the update rounds away, as in
+   the reference); the step wall (median of steps 3–6,
+   host clock + sync), tokens/s, peak memory above what earlier phases
+   hold, one more step traced by torch.profiler (device ms, events, busy
+   share) and one split into forward+backward and the optimizer (host
+   clock + sync). 14b: the same config in f32, TF32 off, at B
+   GRAD_CHECK_BATCH, L GRAD_CHECK_SEQ: the central difference of the loss
+   along the normalized gradient, ε = GRAD_CHECK_DELTA / ‖∇L‖ (a
+   first-order loss change of GRAD_CHECK_DELTA either way), within 1e-2
+   of ‖∇L‖ (two more δ printed beside it). 14c: tests/
+   test_fault_tolerance.py's reduced config (TRAIN_REDUCED): an
+   uninterrupted run and one through ``run_with_restarts`` with failures
+   at steps 3 and 6 end with equal parameters and moments bit for bit on
+   the card; the same Trainer on the CPU from the card's initial weights
+   gives losses within 1e-4 of the card's (TF32 off). 14d: a (2, 1) data
+   grid through ``spawn_grid`` (both ranks share the card over gloo: not a
+   scaling measurement), TRAIN_DP_STEPS ``compress_dp`` steps of the
+   reduced config: both ranks' parameters equal bit for bit, step 0's
+   compressed gradient within 3·max|g|/127 of the exact mean of the two
+   shards' gradients, and the all-gathered bytes (``grid.log``) beside the
+   f32 all-reduce they replace.
+
 Before the last line it prints the nvidia-smi line, one JSON line of
 per-kernel numbers (``{"kernels": [...]}``: the headline times are those
 of ``headline_shape``, HE Mul's region 1 for a kernel and the batched
@@ -235,7 +268,8 @@ the circuit path's JSON line, the serving JSON line
 {...}}``), the bootstrap JSON line (``{"bootstrap": {...}}``), the
 β = 2^64 JSON line (``{"beta64": {...}}``), the grid JSON line
 (``{"grid": {...}}``), the phase 12 JSON line (``{"finish": {...}}``),
-the LM JSON line (``{"lm": {...}}``) and the nvidia-smi line again; the
+the LM JSON line (``{"lm": {...}}``), the training JSON line
+(``{"train": {...}}``) and the nvidia-smi line again; the
 last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX
 and nothing of the JAX package.
 """
@@ -253,6 +287,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# phase 14's deterministic training needs cuBLAS's deterministic workspace,
+# which torch sizes at this process's first cuBLAS call (the spawned ranks
+# inherit it)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 # 32-bit integer multiplies per second: Hopper has 64 INT32 lanes per SM,
@@ -346,6 +384,17 @@ LM_SEED = 0
 LM_PROFILED_STEPS = 8
 LM_CPU_PROMPT = 16
 LM_REDUCED_BATCH, LM_REDUCED_PROMPT, LM_REDUCED_GEN = 2, 16, 4
+# Phase 14, the LM training path: 14a's batch, sequence and steps at full
+# size, 14b's batch, sequence and first-order loss change, 14c's reduced
+# config (tests/test_fault_tolerance.py's) and its run, 14d's steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 6
+GRAD_CHECK_BATCH, GRAD_CHECK_SEQ = 2, 64
+GRAD_CHECK_DELTA = 1e-2
+TRAIN_REDUCED = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2,
+                     head_dim=32, d_ff=128, vocab_size=256)
+TRAIN_REDUCED_RUN = dict(batch=2, seq_len=16, steps=8, ckpt_every=2,
+                         warmup_steps=2)
+TRAIN_DP_STEPS = 4
 SOURCES = {
     "modmul": ("kernels/csrc/modmul.cu",
                "src/repro/kernels/modmul/modmul.py:33"),
@@ -3291,6 +3340,319 @@ def drive_lm_path(torch, np, dev, common, card: str) -> dict:
     return out
 
 
+def train_dp_rank(grid, steps: int) -> dict:
+    """Phase 14d in one rank: a compress_dp Trainer of the reduced config
+    on the grid; step 0's compressed gradient beside the exact mean of the
+    ranks' gradients, then `steps` steps; a digest of the parameters."""
+    import hashlib
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.dist import comm
+    from repro_torch.launch.train import TrainConfig, Trainer, deterministic
+    from repro_torch.models import loss_fn
+    cfg = get_arch(LM_ARCH).reduced(**TRAIN_REDUCED)
+    tr = Trainer(cfg, TrainConfig(**TRAIN_REDUCED_RUN), grid=grid,
+                 compress_dp=True)
+    batch = tr.data.batch_at(0)
+    with deterministic():
+        compressed, _ = tr._grads(batch)
+        tr.params.zero_grad(set_to_none=True)
+        total, _ = loss_fn(tr.params, tr.data.shard_slice(
+            batch, grid.data_rank, grid.data), cfg)
+        total.backward()
+    errs, g_max, numel = [], [], 0
+    for k, p in tr.params.named_parameters():
+        g_max.append(p.grad.abs().max())
+        numel += p.numel()
+        exact = comm.all_reduce(grid, p.grad.clone(), axis="data") / grid.data
+        errs.append((compressed[k] - exact).abs().max())
+    tr.params.zero_grad(set_to_none=True)
+    # the largest |g| of any shard: the reference's limit reads it
+    g_top = comm.all_gather(grid, torch.stack(g_max).max()[None].cpu(),
+                            axis="data", book="feed")
+    err = float(torch.stack(errs).max())
+    comm.reset(grid)
+    t0 = time.perf_counter()
+    hist = tr.run(steps)["history"]
+    run_s = time.perf_counter() - t0
+    log = comm.summary(grid)
+    gathers = [r for r in grid.log["step"] if r["kind"] == "all-gather"]
+    h = hashlib.sha1()
+    for k, v in sorted(tr.params.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+                 .tobytes())
+    return {"rank": grid.rank, "digest": h.hexdigest(),
+            "losses": [x["loss"] for x in hist],
+            "step_s": [x["sec"] for x in hist], "run_s": run_s,
+            "err": err, "g_max": float(g_top.max()), "numel": numel,
+            "collectives": log["counts"],
+            "all_gather_payload_bytes": sum(r["bytes"] for r in gathers),
+            "all_gather_wire_bytes": sum(r["wire_bytes"] for r in gathers),
+            "collective_s": log["seconds"], "backend": grid.backend}
+
+
+def drive_train_path(torch, np, dev, common, card: str) -> dict:
+    """Phase 14: the LM training path (see the module docstring)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import spawn_grid
+    from repro_torch.launch.train import (
+        TrainConfig, Trainer, deterministic, run_with_restarts,
+    )
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import adamw_update, warmup_cosine
+    from repro_torch.runtime import FailureInjector
+
+    phase_t0 = time.perf_counter()
+    out: dict = {"card": card}
+    before = dict(common.LAUNCHES)
+    cfg = get_arch(LM_ARCH)
+
+    # ---- 14a: the full config in bf16 through the Trainer ---------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # what earlier phases still hold
+    tc = TrainConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=TRAIN_STEPS,
+                     warmup_steps=2)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tc, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    first = {k: p.detach().clone() for k, p in tr.params.named_parameters()}
+    n_params = sum(p.numel() for p in first.values())
+    t0 = time.perf_counter()
+    hist = tr.run()["history"]
+    run_s = time.perf_counter() - t0
+    losses = [h["loss"] for h in hist]
+    require(len(losses) == TRAIN_STEPS
+            and all(np.isfinite(x) for x in losses),
+            f"14a: losses {losses}")
+    # every gradient reached its leaf; every leaf moved, but a bf16 norm
+    # scale at 1.0, whose spacing (2^-8 below 1, 2^-7 above) is over ten
+    # times the largest AdamW step at peak_lr (≈ lr·(1 + wd)), so each
+    # step rounds back to it in bf16, as it does in the reference
+    silent = [k for k, m in tr.opt.mu.items() if not bool(m.any())]
+    require(not silent, f"14a: no gradient reached {silent[:4]}")
+    unchanged = [k for k, p in tr.params.named_parameters()
+                 if torch.equal(p.detach(), first[k])]
+    odd = [k for k in unchanged if not (k.endswith("scale") and bool(
+        (first[k] == 1).all()) and first[k].dtype == torch.bfloat16)]
+    require(not odd, f"14a: parameters unchanged: {odd[:4]}")
+    del first
+    steady = [h["sec"] * 1e3 for h in hist[2:]]   # steps 3–6
+    step_ms = statistics.median(steady)
+    peak = torch.cuda.max_memory_allocated()
+    trace = profile(torch, lambda: tr.run(tr.step + 1))
+    # one more step split at the optimizer (host clock + sync each part)
+    batch = tr.data.batch_at(tr.step)
+    with deterministic():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, _ = tr._grads(batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lr = warmup_cosine(tr.opt.step, peak_lr=tc.peak_lr,
+                           warmup_steps=tc.warmup_steps,
+                           total_steps=tc.steps)
+        _, tr.opt, _ = adamw_update(grads, tr.opt, tr.params, lr=lr)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    del grads
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in tr.params.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out["full"] = {
+        "config": f"{LM_ARCH} (configs/llama3_2_1b.py) bf16 parameters, "
+                  f"f32 moments, weights from seed {LM_SEED}; remat "
+                  f"{cfg.remat_policy if cfg.remat else 'none'}",
+        "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "params": n_params, "param_bytes": param_bytes, "init_s": init_s,
+        "losses": losses, "step_ms": [h["sec"] * 1e3 for h in hist],
+        "leaves": len(tr.opt.mu), "unchanged_bf16_norm_scales": unchanged,
+        "step_ms_median_3_6": step_ms, "tokens_per_s": tokens * 1e3 / step_ms,
+        "run_s": run_s, "fwd_bwd_ms": (t1 - t0) * 1e3,
+        "optimizer_ms": (t2 - t1) * 1e3,
+        "peak_memory_bytes": peak, "held_before_bytes": held,
+        "peak_above_held_bytes": peak - held,
+        "step_profile": {k: trace[k] for k in (
+            "wall_ms", "device_ms", "busy_share", "device_events", "top")}}
+    print(f"14a {LM_ARCH} full bf16 training ({n_params / 1e9:.3f} B "
+          f"params) B={TRAIN_BATCH} L={TRAIN_SEQ}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} over {TRAIN_STEPS} steps, every leaf's "
+          f"moments moved, every parameter but {len(unchanged)} bf16 norm "
+          f"scales at 1.0 changed; step {step_ms:.1f} ms (median of steps "
+          f"3-6; "
+          f"{tokens * 1e3 / step_ms:.0f} tokens/s); one step split: "
+          f"forward+backward {(t1 - t0) * 1e3:.1f} ms, AdamW "
+          f"{(t2 - t1) * 1e3:.1f} ms; traced step: device "
+          f"{trace['device_ms']:.1f} ms of {trace['wall_ms']:.1f} ms wall "
+          f"(busy {trace['busy_share']:.1%}, {trace['device_events']} "
+          f"device events); peak {(peak - held) / 2 ** 30:.2f} GiB above "
+          f"the {held / 2 ** 30:.2f} GiB earlier phases hold; {card}",
+          flush=True)
+    del tr, batch
+    torch.cuda.empty_cache()
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        # ---- 14b: the full-width gradient check in f32 -------------------
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    activation_dtype="float32")
+        model = init_params(cfg32, torch.Generator(device=dev).manual_seed(
+            LM_SEED), dev)
+        batch = SyntheticLM(cfg32, GRAD_CHECK_BATCH, GRAD_CHECK_SEQ,
+                            seed=LM_SEED, device=dev).batch_at(0)
+        params = list(model.parameters())
+        with deterministic():
+            total, _ = loss_fn(model, batch, cfg32)
+            total.backward()
+            gnorm = float(torch.sqrt(sum(torch.sum(p.grad.double() ** 2)
+                                         for p in params)))
+
+            def loss_at(alpha: float) -> float:
+                """L(θ + alpha·ĝ), θ restored afterwards."""
+                with torch.no_grad():
+                    for p in params:
+                        p.add_(p.grad, alpha=alpha / gnorm)
+                    val = float(loss_fn(model, batch, cfg32)[0].double())
+                    for p in params:
+                        p.sub_(p.grad, alpha=alpha / gnorm)
+                return val
+
+            checks = {}
+            for delta in (1e-1, GRAD_CHECK_DELTA, 1e-3):
+                eps = delta / gnorm
+                fd = (loss_at(eps) - loss_at(-eps)) / (2 * eps)
+                checks[delta] = {"eps": eps, "central_difference": fd,
+                                 "rel_err": abs(fd - gnorm) / gnorm}
+        chosen = checks[GRAD_CHECK_DELTA]
+        require(chosen["rel_err"] <= 1e-2,
+                f"14b: the central difference {chosen['central_difference']}"
+                f" against ‖∇L‖ {gnorm} (rel {chosen['rel_err']:.3e})")
+        out["grad_check"] = {
+            "config": f"{LM_ARCH} full width in f32, TF32 off",
+            "batch": GRAD_CHECK_BATCH, "seq_len": GRAD_CHECK_SEQ,
+            "loss": float(total.detach()), "grad_norm": gnorm,
+            "delta": GRAD_CHECK_DELTA, "tol": 1e-2,
+            "by_delta": {str(d): c for d, c in checks.items()}}
+        print(f"14b {LM_ARCH} full f32 B={GRAD_CHECK_BATCH} "
+              f"L={GRAD_CHECK_SEQ}: ‖∇L‖ {gnorm:.6f}; central difference "
+              f"along ∇L/‖∇L‖ at ε = δ/‖∇L‖: " + ", ".join(
+                  f"δ={d:g} {c['central_difference']:.6f} (rel "
+                  f"{c['rel_err']:.2e})" for d, c in checks.items())
+              + f"; δ={GRAD_CHECK_DELTA:g} within 1e-2", flush=True)
+        del model, params, batch, total
+        torch.cuda.empty_cache()
+
+        # ---- 14c: replay bit for bit; the card against the CPU ------------
+        rcfg = get_arch(LM_ARCH).reduced(**TRAIN_REDUCED)
+        rtc = TrainConfig(**TRAIN_REDUCED_RUN)
+        # a crashed trainer's save thread may still write as this ends
+        with tempfile.TemporaryDirectory(prefix="train-",
+                                         ignore_cleanup_errors=True) as tmp:
+            ref = Trainer(rcfg, rtc, ckpt_dir=os.path.join(tmp, "ref"),
+                          device=dev)
+            init = {k: v.detach().cpu().clone()
+                    for k, v in ref.params.state_dict().items()}
+            t0 = time.perf_counter()
+            ref_hist = ref.run()["history"]
+            ref_s = time.perf_counter() - t0
+            inj = FailureInjector(fail_at_steps=[3, 6])
+            t0 = time.perf_counter()
+            crashed, _, restarts = run_with_restarts(
+                lambda: Trainer(rcfg, rtc, ckpt_dir=os.path.join(tmp, "c"),
+                                injector=inj, device=dev),
+                total_steps=rtc.steps)
+            replay_s = time.perf_counter() - t0
+        require(restarts == 2, f"14c: {restarts} restarts")
+        for k, v in ref.params.state_dict().items():
+            require(torch.equal(v, crashed.params.state_dict()[k]),
+                    f"14c: the replayed {k} differs")
+        for k in ref.opt.mu:
+            require(torch.equal(ref.opt.mu[k], crashed.opt.mu[k])
+                    and torch.equal(ref.opt.nu[k], crashed.opt.nu[k]),
+                    f"14c: the replayed moments of {k} differ")
+        cpu = Trainer(rcfg, rtc, device="cpu")
+        cpu.params.load_state_dict(init)
+        t0 = time.perf_counter()
+        cpu_hist = cpu.run()["history"]
+        cpu_s = time.perf_counter() - t0
+        cpu_err = max(abs(a["loss"] - b["loss"])
+                      for a, b in zip(ref_hist, cpu_hist))
+        require(cpu_err <= 1e-4, f"14c: the card's losses differ from the "
+                                 f"CPU's by {cpu_err}")
+        out["reduced"] = {
+            "config": f"{LM_ARCH}.reduced({TRAIN_REDUCED}) f32, "
+                      f"{TRAIN_REDUCED_RUN}",
+            "losses": [h["loss"] for h in ref_hist], "restarts": restarts,
+            "replay_bitwise": True, "card_vs_cpu_max_abs_err": cpu_err,
+            "tol": 1e-4, "run_s": ref_s, "replay_s": replay_s,
+            "cpu_run_s": cpu_s}
+        print(f"14c {LM_ARCH} reduced: {rtc.steps} steps, crash at 3 and 6 "
+              f"+ {restarts} restarts == the uninterrupted run bit for bit "
+              f"(parameters and moments); the card's losses == the CPU's "
+              f"(max |err| {cpu_err:.2e} ≤ 1e-4); run {ref_s:.2f} s, replay "
+              f"{replay_s:.2f} s, CPU {cpu_s:.2f} s", flush=True)
+        del ref, crashed, cpu
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+    # ---- 14d: compressed data-parallel gradients on a (2, 1) grid --------
+    t0 = time.perf_counter()
+    ranks = spawn_grid(train_dp_rank, model=1, data=2, device=dev.type,
+                       args=(TRAIN_DP_STEPS,))
+    dp_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    require(all(r["digest"] == r0["digest"] for r in ranks)
+            and all(r["losses"] == r0["losses"] for r in ranks),
+            "14d: the replicas differ")
+    require(all(np.isfinite(x) for x in r0["losses"])
+            and len(r0["losses"]) == TRAIN_DP_STEPS, f"14d: {r0['losses']}")
+    for r in ranks:
+        require(r["err"] <= 3 * r["g_max"] / 127.0,
+                f"14d: rank {r['rank']}'s compressed gradient is "
+                f"{r['err']} from the exact mean (limit "
+                f"{3 * r['g_max'] / 127.0})")
+    # the f32 all-reduce the gathers replace: 2·S·(g−1)/g ring bytes of the
+    # gradients, TRAIN_DP_STEPS times
+    f32_wire = TRAIN_DP_STEPS * 2 * 4 * r0["numel"] * (2 - 1) / 2
+    out["compressed_dp"] = {
+        "note": "2 ranks share one card over gloo: not a scaling "
+                "measurement",
+        "grid": "2x1", "steps": TRAIN_DP_STEPS, "losses": r0["losses"],
+        "replicas_bitwise": True, "spawn_s": dp_s,
+        "ranks": [{k: v for k, v in r.items() if k != "losses"}
+                  for r in ranks],
+        "f32_all_reduce_wire_bytes_replaced": f32_wire}
+    print(f"14d compress_dp on a 2x1 grid ({r0['backend']}, one card): "
+          f"{TRAIN_DP_STEPS} steps, replicas bit-identical; step 0's "
+          f"gradient within {max(r['err'] for r in ranks):.3e} of the "
+          f"exact mean (limit {3 * r0['g_max'] / 127.0:.3e}); all-gather "
+          f"{r0['all_gather_payload_bytes']} payload bytes, "
+          f"{r0['all_gather_wire_bytes']:.0f} ring bytes a rank against "
+          f"{f32_wire:.0f} for the f32 all-reduce "
+          f"({f32_wire / r0['all_gather_wire_bytes']:.2f}x); "
+          f"{r0['collectives']}, {r0['collective_s']:.2f} s in them; "
+          f"spawn + run {dp_s:.1f} s", flush=True)
+
+    launched_here = {k: v - before[k] for k, v in common.LAUNCHES.items()
+                     if v - before[k]}
+    # no pallas_call lies on the training path, so no kernel of the port
+    require(not launched_here,
+            f"14: the training path launched {launched_here}")
+    out["port_kernel_launches"] = launched_here
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"phase 14 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def profile(torch, fn) -> dict:
     """Device time by kernel name over one call of fn, the busy share, and
     the device time of the port's kernels (in all and by kernel) against
@@ -3342,6 +3704,7 @@ def main() -> int:
     from repro_torch.kernels import common
 
     dev = torch.device("cuda", torch.cuda.current_device())
+    smoke_t0 = time.perf_counter()
     t0 = time.perf_counter()
     lib_path = common.build()
     common.library()
@@ -3392,6 +3755,7 @@ def main() -> int:
                                circuit["keys"], stream, serving, multihost,
                                beta64, grid)
     lm = drive_lm_path(torch, np, dev, common, card)
+    train = drive_train_path(torch, np, dev, common, card)
     per_he_mul = {key: sum(n * r[key] for k, counts in
                            HE_MUL_SHAPE_LAUNCHES.items()
                            for n, r in zip(counts, per_kernel[k]))
@@ -3520,6 +3884,9 @@ def main() -> int:
         "note": f"{GRID_RANKS} ranks share one card over gloo: not a "
                 f"scaling measurement", **finish, "card": card}}))
     print(json.dumps({"lm": lm}))
+    print(json.dumps({"train": train}))
+    print(f"chip_smoke took {time.perf_counter() - smoke_t0:.1f} s",
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

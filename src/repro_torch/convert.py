@@ -17,13 +17,23 @@ in the JAX package's layout: ``layers`` stacked for ``lax.scan``,
 :func:`lm_cache_from_numpy` and :func:`lm_cache_to_numpy` do the same for
 a decode cache (``stacked``, ``groups`` + ``tail``, ``list`` or ``dec``).
 A bfloat16 array (``ml_dtypes.bfloat16``) becomes a ``torch.bfloat16``
-tensor of the same bits. Weights keep their ``(d_in, d_out)``
+tensor of the same bits. :func:`opt_state_from_numpy` and
+:func:`opt_state_to_numpy` carry AdamW's state the same way.
+
+The training side reads the same mapping on tensors: :func:`lm_order`
+lists parameter names in the reference's flatten order (the order its
+gradient norm sums and its compressed all-reduce numbers the leaves),
+:func:`lm_stack` / :func:`lm_unstack` join per-layer tensors into the
+reference's leaves and split them again, and :func:`lm_tree` /
+:func:`lm_untree` nest those leaves as the reference's tree (what a
+checkpoint stores). Weights keep their ``(d_in, d_out)``
 orientation, so nothing is transposed.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 
 import numpy as np
 import torch
@@ -31,7 +41,9 @@ import torch
 from repro_torch.core.context import resolve_device
 
 __all__ = ["from_numpy", "to_numpy", "lm_params_from_numpy",
-           "lm_params_to_numpy", "lm_cache_from_numpy", "lm_cache_to_numpy"]
+           "lm_params_to_numpy", "lm_cache_from_numpy", "lm_cache_to_numpy",
+           "lm_order", "lm_stack", "lm_unstack", "lm_tree", "lm_untree",
+           "opt_state_from_numpy", "opt_state_to_numpy"]
 
 
 def from_numpy(cls, fields: dict, device: str | torch.device = "cuda"):
@@ -85,9 +97,18 @@ def _lm_array(t: torch.Tensor) -> np.ndarray:
     """A copy of `t` on the host (decode writes caches in place)."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes
-        return np.array(t.view(torch.int16).numpy()).view(ml_dtypes.bfloat16)
+        return np.array(t.view(torch.int16).numpy()).view(_bf16())
     return np.array(t.numpy())
+
+
+def _bf16() -> np.dtype:
+    """numpy's bfloat16, which exists once the JAX package (the consumer
+    of these arrays) has loaded ml_dtypes; the port never imports it."""
+    mod = sys.modules.get("ml_dtypes")
+    if mod is None:
+        raise RuntimeError("a bfloat16 array for the JAX package needs "
+                           "ml_dtypes loaded (import jax first)")
+    return np.dtype(mod.bfloat16)
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -165,9 +186,11 @@ def _to_per_layer(flat: dict, cfg, stacked: str, listed: str, out: str
     return res
 
 
-def _from_per_layer(flat: dict, cfg, stacked: str, listed: str, out: str
-                    ) -> dict:
-    """The inverse of :func:`_to_per_layer` in `cfg`'s layout."""
+def _from_per_layer(flat: dict, cfg, stacked: str, listed: str, out: str,
+                    stack=np.stack) -> dict:
+    """The inverse of :func:`_to_per_layer` in `cfg`'s layout (`stack`
+    joins a stacked leaf's layers: np.stack for arrays, torch.stack for
+    tensors)."""
     layout = _layout(cfg)
     res, per = {}, {}
     for name, a in flat.items():
@@ -182,7 +205,7 @@ def _from_per_layer(flat: dict, cfg, stacked: str, listed: str, out: str
         return res
     if layout == "stacked":
         for rest in {r for _, r in per}:
-            res[f"{stacked}.{rest}"] = np.stack(
+            res[f"{stacked}.{rest}"] = stack(
                 [per[(i, rest)] for i in range(cfg.n_layers)])
         return res
     g, n_groups = _groups(cfg)
@@ -190,7 +213,7 @@ def _from_per_layer(flat: dict, cfg, stacked: str, listed: str, out: str
         if i >= n_groups * g:
             res[f"tail.{i - n_groups * g}.{rest}"] = a
         elif i < g:
-            res[f"groups.sub{i}.{rest}"] = np.stack(
+            res[f"groups.sub{i}.{rest}"] = stack(
                 [per[(n * g + i, rest)] for n in range(n_groups)])
     return res
 
@@ -223,7 +246,7 @@ def lm_params_to_numpy(model, cfg) -> dict:
     """The JAX package's parameter tree of `model`, in `cfg`'s layout."""
     flat = {k: _lm_array(v) for k, v in model.state_dict().items()}
     flat = _from_per_layer(flat, cfg, "layers", "layers_list", "layers")
-    return _unflatten(flat, ("tail",) if _layout(cfg) == "groups" else ())
+    return _unflatten(flat, _lists(cfg))
 
 
 def lm_cache_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda"
@@ -240,4 +263,90 @@ def lm_cache_to_numpy(cache: dict, cfg) -> dict:
     layout."""
     flat = {k: _lm_array(v) for k, v in _flatten(cache).items()}
     flat = _from_per_layer(flat, cfg, "stacked", "list", "list")
-    return _unflatten(flat, ("tail",) if _layout(cfg) == "groups" else ())
+    return _unflatten(flat, _lists(cfg))
+
+
+# ---- the training side -----------------------------------------------------
+
+def _lists(cfg) -> tuple:
+    return ("tail",) if _layout(cfg) == "groups" else ()
+
+
+def _path_key(name: str) -> tuple:
+    """A dotted path's place in a pytree flatten: dict keys sorted as
+    strings, list entries by index."""
+    return tuple((0, int(c), "") if c.isdigit() else (1, 0, c)
+                 for c in name.split("."))
+
+
+def lm_order(names, cfg) -> list:
+    """Parameter names in the reference's flatten order of their leaves
+    (a stacked leaf's layers one after another)."""
+    flat = _from_per_layer({n: n for n in names}, cfg, "layers",
+                           "layers_list", "layers", stack=list)
+    out = []
+    for ref in sorted(flat, key=_path_key):
+        out.extend(flat[ref] if isinstance(flat[ref], list) else
+                   [flat[ref]])
+    return out
+
+
+def lm_stack(named: dict, cfg) -> dict:
+    """{reference leaf (dotted): tensor} of {parameter name: tensor}, in
+    the reference's flatten order; stacked leaves are new tensors."""
+    flat = _from_per_layer(named, cfg, "layers", "layers_list", "layers",
+                           stack=torch.stack)
+    return {k: flat[k] for k in sorted(flat, key=_path_key)}
+
+
+def lm_unstack(flat: dict, cfg) -> dict:
+    """{parameter name: tensor} of {reference leaf: tensor}; a stacked
+    leaf's layers are views of it."""
+    return _to_per_layer(flat, cfg, "layers", "layers_list", "layers")
+
+
+def lm_tree(named: dict, cfg) -> dict:
+    """The reference's nested tree of {parameter name: tensor}."""
+    return _unflatten(lm_stack(named, cfg), _lists(cfg))
+
+
+def lm_untree(tree: dict, cfg) -> dict:
+    """{parameter name: tensor} of the reference's nested tree."""
+    return lm_unstack(_flatten(tree), cfg)
+
+
+def _fields(state) -> tuple:
+    if isinstance(state, dict):
+        return state["step"], state["mu"], state["nu"]
+    return state.step, state.mu, state.nu
+
+
+def opt_state_from_numpy(state, cfg, device: str | torch.device = "cuda"):
+    """The port's :class:`~repro_torch.optim.OptState` of the JAX
+    package's AdamW state `state` (an ``OptState`` or a dict with
+    ``step``, ``mu`` and ``nu``; numpy leaves in any of the layouts) on
+    `device`."""
+    from repro_torch.optim import OptState
+    dev = resolve_device(device)
+    step, mu, nu = _fields(state)
+
+    def moments(tree):
+        flat = _to_per_layer(_flatten(tree), cfg, "layers", "layers_list",
+                             "layers")
+        return {k: _lm_tensor(a, dev) for k, a in flat.items()}
+
+    return OptState(step=torch.tensor(int(np.asarray(step)),
+                                      dtype=torch.int32, device=dev),
+                    mu=moments(mu), nu=moments(nu))
+
+
+def opt_state_to_numpy(state, cfg) -> dict:
+    """{"step", "mu", "nu"} of the port's AdamW state: the JAX package's
+    fields, numpy leaves in `cfg`'s layout."""
+    def moments(named):
+        flat = {k: _lm_array(v) for k, v in named.items()}
+        return _unflatten(_from_per_layer(flat, cfg, "layers", "layers_list",
+                                          "layers"), _lists(cfg))
+
+    return {"step": np.asarray(int(state.step), np.int32),
+            "mu": moments(state.mu), "nu": moments(state.nu)}

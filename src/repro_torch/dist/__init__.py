@@ -20,8 +20,12 @@
   - record:      ``python -m repro_torch.dist --record``: the measured
                  schedule of every served op in SHARD_MANIFEST.json's
                  schema.
+  - collectives: the training side's compressed data-parallel gradient
+                 mean (int8 payloads all-gathered through comm).
 """
 
-from repro_torch.dist import comm, he_pipeline, sharding  # noqa: F401
+from repro_torch.dist import (  # noqa: F401
+    collectives, comm, he_pipeline, sharding,
+)
 
-__all__ = ["comm", "he_pipeline", "sharding"]
+__all__ = ["collectives", "comm", "he_pipeline", "sharding"]

@@ -6,14 +6,17 @@ blocks.Block` a layer in an ``nn.ModuleList``, whatever layout the JAX
 package stacks its parameters in (``layers``, ``groups``/``tail`` or
 ``layers_list``; :mod:`repro_torch.convert` reads and writes all three).
 The functions keep the reference's signatures with the model in place of
-the parameter tree; the reference's remat policies have no counterpart in
-an eager forward. A cache is ``{"list": [one dict a layer]}``, or
+the parameter tree. The training stack honours the config's remat policy
+as the reference does (:func:`_remat_wrap`: ``"full"`` recomputes each
+layer in the backward pass, ``"dots"`` keeps the matmul outputs); remat
+changes no value. A cache is ``{"list": [one dict a layer]}``, or
 ``{"dec": [...]}`` for the encoder-decoder; decode writes attention
 caches in place.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -113,12 +116,38 @@ def _init_dec_layers(gen, cfg) -> nn.ModuleDict:
 # stacks (train)
 # --------------------------------------------------------------------------
 
+# the matmuls without batch dimensions (x @ w of a dense layer): what
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable keeps
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _remat_wrap(fn, cfg):
+    """Apply the configured remat policy to a layer function."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return fn
+    from torch.utils.checkpoint import (
+        checkpoint, create_selective_checkpoint_contexts,
+    )
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, list(_SAVED_DOTS))
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
+
+    def wrapped(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+    return wrapped
+
+
 def _run_stack(model: LM, x, cfg, positions=None):
     """Returns (x, total_aux)."""
     kinds = cfg.layer_kinds
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    layer = _remat_wrap(apply_layer, cfg) if torch.is_grad_enabled() \
+        else apply_layer
     for i, lp in enumerate(model.layers):
-        x, a = apply_layer(lp, x, cfg, kinds[i], positions=positions)
+        x, a = layer(lp, x, cfg, kinds[i], positions=positions)
         aux_total = aux_total + a
     return x, aux_total
 

@@ -10,6 +10,7 @@ against the JAX package in the other tests/test_torch_*.py files.
 """
 
 import ctypes
+import os
 import random
 
 import numpy as np
@@ -35,6 +36,10 @@ from repro_torch.kernels.ntt.ref import intt_ref, ntt_ref
 from repro_torch.nt.residue import ints_to_limb_array
 
 pytestmark = pytest.mark.cuda
+
+# the trainer's deterministic mode on a card: cuBLAS reads this when torch
+# first sizes its workspace, so it is set before any test runs a matmul
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 @pytest.fixture
@@ -986,6 +991,60 @@ def test_cuda_lm_reduced_matches_the_cpu(dev, arch, monkeypatch):
                                    16 + i, cfg)
     torch.cuda.synchronize()
     assert not any(common.LAUNCHES.values())
+
+
+TRAIN_KW = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2,
+                head_dim=32, d_ff=128, vocab_size=256)
+
+
+def _train_config(**kw):
+    from repro_torch.launch.train import TrainConfig
+    base = dict(batch=2, seq_len=16, steps=8, ckpt_every=2, warmup_steps=2)
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+def test_cuda_train_replay_is_bitwise(dev, tmp_path):
+    """tests/test_fault_tolerance.py's crash/restart replay on the card:
+    parameters and moments equal bit for bit; no kernel of the port
+    launches on the training path."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import Trainer, run_with_restarts
+    from repro_torch.runtime import FailureInjector
+    cfg = get_arch("llama3.2-1b").reduced(**TRAIN_KW)
+    common.reset_launches()
+    ref = Trainer(cfg, _train_config(), ckpt_dir=str(tmp_path / "ref"),
+                  device=dev)
+    ref.run()
+    inj = FailureInjector(fail_at_steps=[3, 6])
+    trainer, _, restarts = run_with_restarts(
+        lambda: Trainer(cfg, _train_config(), ckpt_dir=str(tmp_path / "c"),
+                        injector=inj, device=dev), total_steps=8)
+    assert restarts == 2
+    for k, v in ref.params.state_dict().items():
+        assert torch.equal(v, trainer.params.state_dict()[k]), k
+    for k, m in ref.opt.mu.items():
+        assert torch.equal(m, trainer.opt.mu[k])
+        assert torch.equal(ref.opt.nu[k], trainer.opt.nu[k])
+    torch.cuda.synchronize()
+    assert not any(common.LAUNCHES.values())
+
+
+def test_cuda_trainer_matches_the_cpu(dev, monkeypatch):
+    """The same Trainer on the card and on the CPU from the card's
+    initial weights, TF32 off: loss histories within 1e-4."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import Trainer
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = get_arch("llama3.2-1b").reduced(**TRAIN_KW)
+    card = Trainer(cfg, _train_config(), device=dev)
+    cpu = Trainer(cfg, _train_config(), device="cpu")
+    cpu.params.load_state_dict(card.params.state_dict())
+    want = [h["loss"] for h in cpu.run()["history"]]
+    got = [h["loss"] for h in card.run()["history"]]
+    assert len(got) == 8
+    assert max(abs(a - b) for a, b in zip(got, want)) <= 1e-4
 
 
 def cache_leaves(tree) -> list:

@@ -419,16 +419,18 @@ def _public_names(cls) -> set:
 
 
 def test_ported_classes_have_the_reference_public_names():
-    """Every class the port defines in core, hserve, client, boot and dist
-    (the classes given a grid among them: HEServer, OpEngine, TableCache,
-    HESession, StageFns) has each public name (attributes, methods,
-    properties, dataclass fields) of the reference class it ports, except
-    the gaps listed above."""
-    compared, gaps = 0, {}
-    for pkg in ("core", "hserve", "client", "boot", "dist"):
+    """Every class the port defines in core, hserve, client, boot, dist,
+    optim, ckpt and launch.train (the classes given a grid among them:
+    HEServer, OpEngine, TableCache, HESession, StageFns, Trainer) has each
+    public name (attributes, methods, properties, dataclass fields) of the
+    reference class it ports, except the gaps listed above."""
+    compared, gaps, seen = 0, {}, set()
+    for pkg in ("core", "hserve", "client", "boot", "dist", "optim", "ckpt",
+                "launch.train"):
         package = importlib.import_module(f"repro_torch.{pkg}")
         names = [pkg] + [f"{pkg}.{m.name}" for m in
-                         pkgutil.iter_modules(package.__path__)
+                         pkgutil.iter_modules(getattr(package, "__path__",
+                                                      []))
                          if m.name != "__main__"
                          and f"{pkg}.{m.name}" not in PORT_ONLY_MODULES]
         for name in names:
@@ -445,7 +447,10 @@ def test_ported_classes_have_the_reference_public_names():
                 missing -= set(ALLOWED_GAPS.get((name, cname), ()))
                 if missing:
                     gaps[f"{name}.{cname}"] = sorted(missing)
+                seen.add(f"{name}.{cname}")
     assert compared > 30
+    assert {"optim.adamw.OptState", "ckpt.manager.CheckpointManager",
+            "launch.train.TrainConfig", "launch.train.Trainer"} <= seen
     assert not gaps, gaps
 
 

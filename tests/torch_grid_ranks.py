@@ -411,3 +411,54 @@ def frontend_rank(grid) -> object:
                        "all_reduces": grid_stats["step"]["counts"].get(
                            "all-reduce", 0)}
     return out
+
+
+# ---- the training side (tests/test_torch_train_dist.py) ---------------------
+
+TRAIN_KW = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2,
+                head_dim=32, d_ff=128, vocab_size=256)
+
+
+def compressed_psum_rank(grid, grads_by_rank, noise) -> dict:
+    """compressed_psum_grads of this rank's leaves, fed `noise`."""
+    from repro_torch.dist.collectives import compressed_psum_grads
+    grads = {k: torch.from_numpy(v) for k, v in grads_by_rank[grid.rank]
+             .items()}
+    out = compressed_psum_grads(grads, grid, 0,
+                                noise=[torch.from_numpy(n) for n in noise])
+    return {"out": {k: v.numpy() for k, v in out.items()},
+            "log": comm.summary(grid)}
+
+
+def compress_dp_rank(grid, steps) -> dict:
+    """A compress_dp Trainer on the grid: step 0's compressed gradient
+    beside the exact mean of the ranks' gradients, then `steps` steps."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import TrainConfig, Trainer, deterministic
+    from repro_torch.models import loss_fn
+    cfg = get_arch("llama3.2-1b").reduced(**TRAIN_KW)
+    tr = Trainer(cfg, TrainConfig(batch=4, seq_len=16, steps=8,
+                                  warmup_steps=2), grid=grid,
+                 compress_dp=True)
+    batch = tr.data.batch_at(0)
+    with deterministic():
+        compressed, _ = tr._grads(batch)
+        tr.params.zero_grad(set_to_none=True)
+        total, _ = loss_fn(tr.params, tr.data.shard_slice(
+            batch, grid.data_rank, grid.data), cfg)
+        total.backward()
+    exact, local_max = {}, 0.0
+    for k, p in tr.params.named_parameters():
+        local_max = max(local_max, float(p.grad.abs().max()))
+        exact[k] = comm.all_reduce(grid, p.grad.clone(), axis="data") \
+            / grid.data
+    tr.params.zero_grad(set_to_none=True)
+    g_max = comm.all_gather(grid, torch.tensor([local_max]), axis="data")
+    err = max(float((compressed[k] - exact[k]).abs().max()) for k in exact)
+    comm.reset(grid)
+    hist = tr.run(steps)["history"]
+    return {"params": {k: v.numpy().copy()
+                       for k, v in tr.params.state_dict().items()},
+            "losses": [h["loss"] for h in hist],
+            "err": err, "g_max": float(g_max.max()),
+            "log": comm.summary(grid)}
