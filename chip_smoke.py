@@ -258,6 +258,26 @@ Phases; any failure exits non-zero and prints no result:
    shards' gradients, and the all-gathered bytes (``grid.log``) beside the
    f32 all-reduce they replace.
 
+15. The LM across TP_RANKS model ranks (``dist.sharding.shard_lm``, the
+   models' ``grid=`` path, ``generate(grid=)``), which reaches no kernel of
+   the port (checked in this process and in each rank). The ranks are one
+   ``spawn_grid`` sharing the card over gloo (NCCL refuses two ranks on
+   one GPU), so their walls measure the gloo host path, not scaling. Each
+   rank builds every model from LM_SEED and keeps its shard; this process
+   runs one rank's references first, TF32 off. 15a: llama3.2-1b
+   ``reduced(n_kv_heads=2)`` (the Megatron attention) and falcon-mamba-7b
+   ``reduced()`` (the gathered SSM) in f32, B 2, prompt 16: the logits of
+   prefill and TP_DECODE_STEPS decode steps within 1e-4 of one rank's and
+   the tokens equal. 15b: LM_ARCH at its full published size in f32, B
+   LM_BATCH, prompt LM_PROMPT, the same check; each rank holds exactly
+   its chunk of every split leaf and every whole one (≈ half the model).
+   15c: the same model in bf16 at phase 13's shape (gen LM_GEN): tokens/s
+   (warm run), prefill ms (median of 5), each decode step timed (host
+   clock + sync; median) with its collectives from ``comm.summary`` (count
+   by kind, ring wire bytes, seconds, their share of the step), peak
+   memory a rank, and the first position where the tokens leave one
+   rank's, where one rank's top-2 logit gap must be at most 0.1.
+
 Before the last line it prints the nvidia-smi line, one JSON line of
 per-kernel numbers (``{"kernels": [...]}``: the headline times are those
 of ``headline_shape``, HE Mul's region 1 for a kernel and the batched
@@ -269,7 +289,8 @@ the circuit path's JSON line, the serving JSON line
 β = 2^64 JSON line (``{"beta64": {...}}``), the grid JSON line
 (``{"grid": {...}}``), the phase 12 JSON line (``{"finish": {...}}``),
 the LM JSON line (``{"lm": {...}}``), the training JSON line
-(``{"train": {...}}``) and the nvidia-smi line again; the
+(``{"train": {...}}``), the tensor-parallel JSON line (``{"tp":
+{...}}``) and the nvidia-smi line again; the
 last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX
 and nothing of the JAX package.
 """
@@ -395,6 +416,12 @@ TRAIN_REDUCED = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2,
 TRAIN_REDUCED_RUN = dict(batch=2, seq_len=16, steps=8, ckpt_every=2,
                          warmup_steps=2)
 TRAIN_DP_STEPS = 4
+# Phase 15, the LM across model ranks: the ranks sharing the card, the
+# decode steps 15a and 15b hold against one rank, and 15a's reduced
+# configs (the Megatron attention; the gathered SSM)
+TP_RANKS = 2
+TP_DECODE_STEPS = 8
+TP_REDUCED = (("llama3.2-1b", {"n_kv_heads": 2}), ("falcon-mamba-7b", {}))
 SOURCES = {
     "modmul": ("kernels/csrc/modmul.cu",
                "src/repro/kernels/modmul/modmul.py:33"),
@@ -3099,17 +3126,18 @@ def close_to(got, want, tol: float) -> tuple[bool, float]:
             float(err.max()) if err.numel() else 0.0)
 
 
-def forced_logits(model, cfg, batch: dict, toks, max_len: int) -> list:
+def forced_logits(model, cfg, batch: dict, toks, max_len: int,
+                  grid=None) -> list:
     """The logits ``generate`` computes along its tokens `toks`: prefill's,
     then each decode step's fed toks[:, i] (the last token's step, whose
-    logits choose nothing, is left out)."""
+    logits choose nothing, is left out); with `grid`, one rank's."""
     from repro_torch.models import decode_step, prefill
-    logits, cache = prefill(model, batch, cfg, max_len)
+    logits, cache = prefill(model, batch, cfg, max_len, grid=grid)
     out = [logits]
     L = batch["tokens"].shape[1]
     for i in range(toks.shape[1] - 1):
         logits, cache = decode_step(model, cache, toks[:, i: i + 1], L + i,
-                                    cfg)
+                                    cfg, grid=grid)
         out.append(logits)
     return out
 
@@ -3480,8 +3508,8 @@ def drive_train_path(torch, np, dev, common, card: str) -> dict:
         "step_profile": {k: trace[k] for k in (
             "wall_ms", "device_ms", "busy_share", "device_events", "top")}}
     print(f"14a {LM_ARCH} full bf16 training ({n_params / 1e9:.3f} B "
-          f"params) B={TRAIN_BATCH} L={TRAIN_SEQ}: loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f} over {TRAIN_STEPS} steps, every leaf's "
+          f"params) B={TRAIN_BATCH} L={TRAIN_SEQ}: loss at each step "
+          f"{', '.join(f'{x:.4f}' for x in losses)}, every leaf's "
           f"moments moved, every parameter but {len(unchanged)} bf16 norm "
           f"scales at 1.0 changed; step {step_ms:.1f} ms (median of steps "
           f"3-6; "
@@ -3653,6 +3681,303 @@ def drive_train_path(torch, np, dev, common, card: str) -> dict:
     return out
 
 
+def tp_tokens(np, cfg, batch: int, prompt: int):
+    """Phase 15's prompt: numpy-seeded tokens on the CPU."""
+    import torch
+    return torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, size=(batch, prompt)).astype(np.int32))
+
+
+def tp_config(case):
+    from repro_torch.configs.registry import get_arch
+    arch, kw = case
+    if kw is None:                      # full size, in f32 or bf16
+        return get_arch(arch)
+    return get_arch(arch).reduced(**kw)
+
+
+def tp_rank(grid, jobs) -> dict:
+    """Phase 15 in one model rank: each job's model from LM_SEED, sharded
+    (``shard_lm``), through ``generate(grid=)``; 15a/15b also return the
+    logits along its tokens, 15c the timings and a decode step's
+    collectives. (The ranks re-import this script, so they wait for the
+    card only where they run on one: a CPU grid rehearses them.)"""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.dist import comm
+    from repro_torch.dist.sharding import shard_lm
+    from repro_torch.kernels import common
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decode_step, init_params, prefill
+    dev = grid.device
+    card = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def timed(fn):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(torch, dev)
+        return res, time.perf_counter() - t0
+
+    out = {"rank": grid.rank, "backend": grid.backend, "jobs": []}
+    for name, case, dtype, batch, prompt, gen in jobs:
+        cfg = tp_config(case)
+        if dtype:
+            cfg = dataclasses.replace(cfg, param_dtype=dtype,
+                                      activation_dtype=dtype)
+        model, init_s = timed(lambda: shard_lm(init_params(
+            cfg, torch.Generator(device=dev).manual_seed(LM_SEED), dev),
+            cfg, grid))
+        if card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        res = {"name": name, "init_shard_s": init_s,
+               "held_bytes": sum(p.numel() * p.element_size()
+                                 for p in model.parameters())}
+        tokens = tp_tokens(np, cfg, batch, prompt).to(dev)
+        max_len = prompt + gen + 8
+        walls = []
+        for _ in range(1 if name != "15c" else 2):  # first run, warm one
+            toks, wall = timed(lambda: generate(model, cfg, tokens, gen,
+                                                max_len, grid=grid))
+            walls.append(wall)
+        res["tokens"] = toks.cpu()
+        if name != "15c":
+            res["logits"] = [t.cpu() for t in forced_logits(
+                model, cfg, {"tokens": tokens}, toks, max_len, grid)]
+            out["jobs"].append(res)
+            del model
+            continue
+        runs = [timed(lambda: prefill(model, {"tokens": tokens}, cfg,
+                                      max_len, grid=grid))[1] * 1e3
+                for _ in range(6)][1:]      # after a warm-up run
+        (logits, cache), _ = timed(lambda: prefill(
+            model, {"tokens": tokens}, cfg, max_len, grid=grid))
+        step_ms, steps, by_kind = [], [], []
+        for i in range(gen):            # generate's steps, each timed
+            comm.reset(grid, "decode")
+            (logits, cache), wall = timed(lambda: decode_step(
+                model, cache, toks[:, i: i + 1], prompt + i, cfg,
+                grid=grid))
+            step_ms.append(wall * 1e3)
+            steps.append(comm.summary(grid, "decode"))
+            kinds: dict = {}
+            for rec in grid.log["decode"]:
+                kinds[rec["kind"]] = kinds.get(rec["kind"], 0.0) \
+                    + rec["seconds"]
+            by_kind.append(kinds)
+        if card:                        # one more step, traced on each rank
+            i = gen - 1
+            trace = profile(torch, lambda: decode_step(
+                model, cache, toks[:, i: i + 1], prompt + i, cfg,
+                grid=grid))
+            res["decode_profile"] = {k: trace[k] for k in (
+                "wall_ms", "device_ms", "busy_share", "device_events",
+                "top")}
+        res.update({
+            "generate_s": walls, "tokens_per_s": batch * gen / walls[1],
+            "prefill_ms": statistics.median(runs), "prefill_ms_runs": runs,
+            "decode_ms": step_ms,
+            "decode_ms_median": statistics.median(step_ms),
+            # the collectives of the median step; their seconds in each
+            "decode_collectives": steps[step_ms.index(
+                sorted(step_ms)[len(step_ms) // 2])],
+            "collective_s_per_step": [st["seconds"] for st in steps],
+            "collective_s_by_kind": {k: statistics.median(
+                d.get(k, 0.0) for d in by_kind) for k in by_kind[0]},
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()
+            if card else None,
+            "finite": bool(torch.isfinite(logits).all())})
+        out["jobs"].append(res)
+        del model, cache, logits
+    out["port_kernel_launches"] = {k: v for k, v in common.LAUNCHES.items()
+                                   if v}
+    return out
+
+
+def drive_tp_path(torch, np, dev, common, card: str,
+                  full=(LM_ARCH, None)) -> dict:
+    """Phase 15: the LM across model ranks (see the module docstring).
+    `full` is the (arch, reduced() overrides or None for the published
+    size) of 15b and 15c."""
+    import dataclasses
+    from repro_torch.dist.sharding import lm_param_specs
+    from repro_torch.launch.mesh import GridShape
+    from repro_torch.launch.mesh import spawn_grid
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params
+
+    phase_t0 = time.perf_counter()
+    out: dict = {"card": card, "ranks": TP_RANKS,
+                 "note": f"{TP_RANKS} ranks share one card over gloo: not a "
+                         f"scaling measurement"}
+    before = dict(common.LAUNCHES)
+    G = TP_DECODE_STEPS + 1         # prefill's token, then the steps
+    jobs = [(f"15a {arch}", (arch, kw), None, 2, 16, G)
+            for arch, kw in TP_REDUCED]
+    jobs += [("15b", full, "float32", LM_BATCH, LM_PROMPT, G),
+             ("15c", full, None, LM_BATCH, LM_PROMPT, LM_GEN)]
+
+    # ---- one rank on the card: the references ---------------------------
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    refs = {}
+    try:
+        for name, case, dtype, batch, prompt, gen in jobs:
+            cfg = tp_config(case)
+            if dtype:
+                cfg = dataclasses.replace(cfg, param_dtype=dtype,
+                                          activation_dtype=dtype)
+            torch.cuda.empty_cache()
+            model = init_params(cfg, torch.Generator(device=dev)
+                                .manual_seed(LM_SEED), dev)
+            tokens = tp_tokens(np, cfg, batch, prompt).to(dev)
+            toks = generate(model, cfg, tokens, gen, prompt + gen + 8)
+            refs[name] = {
+                "tokens": toks.cpu(),
+                "logits": [t.cpu() for t in forced_logits(
+                    model, cfg, {"tokens": tokens}, toks,
+                    prompt + gen + 8)],
+                "param_bytes": sum(p.numel() * p.element_size()
+                                   for p in model.parameters()),
+                "params": sum(p.numel() for p in model.parameters())}
+            if name == "15b":
+                specs = lm_param_specs(model, cfg, GridShape(model=TP_RANKS))
+                refs[name]["split_bytes"] = sum(
+                    p.numel() * p.element_size()
+                    for n, p in model.named_parameters()
+                    if "model" in specs[n])
+            del model
+        torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    ref_s = time.perf_counter() - phase_t0
+
+    # ---- TP_RANKS model ranks sharing the card ---------------------------
+    t0 = time.perf_counter()
+    ranks = spawn_grid(tp_rank, model=TP_RANKS, device=dev.type,
+                       args=(jobs,))
+    grid_s = time.perf_counter() - t0
+    for r in ranks:
+        require(not r["port_kernel_launches"],
+                f"15: rank {r['rank']} launched {r['port_kernel_launches']}")
+    r0 = ranks[0]
+    by_name = [{j["name"]: j for j in r["jobs"]} for r in ranks]
+
+    # ---- 15a, 15b: R ranks == one rank (f32) ----------------------------
+    for name, *_ in jobs[:-1]:
+        ref = refs[name]
+        errs = []
+        for r, mine in enumerate(by_name):
+            got = mine[name]
+            require(torch.equal(got["tokens"], ref["tokens"]),
+                    f"{name}: rank {r}'s tokens differ from one rank's")
+            for i, (a, b) in enumerate(zip(got["logits"], ref["logits"])):
+                ok, e = close_to(a, b, 1e-4)
+                require(ok, f"{name}: rank {r}'s step {i} logits differ "
+                            f"from one rank's by {e}")
+                errs.append(e)
+        out[name] = {"max_abs_err": max(errs), "tol": 1e-4,
+                     "steps": G, "tokens_equal": True,
+                     "held_bytes": [m[name]["held_bytes"] for m in by_name],
+                     "param_bytes": ref["param_bytes"],
+                     "init_shard_s": [m[name]["init_shard_s"]
+                                      for m in by_name]}
+    b = out["15b"]
+    split = refs["15b"]["split_bytes"]
+    whole = refs["15b"]["param_bytes"] - split
+    for r, held in enumerate(b["held_bytes"]):
+        require(held == split // TP_RANKS + whole,
+                f"15b: rank {r} holds {held} bytes, not its shard's "
+                f"{split // TP_RANKS + whole}")
+    b["held_share"] = [h / b["param_bytes"] for h in b["held_bytes"]]
+    for name, *_ in jobs[:2]:
+        print(f"{name} reduced() f32 on {TP_RANKS} ranks == one rank: "
+              f"{G} steps, max |err| {out[name]['max_abs_err']:.2e} ≤ 1e-4, "
+              f"tokens equal", flush=True)
+    print(f"15b {LM_ARCH} full f32 ({refs['15b']['params'] / 1e9:.3f} B "
+          f"params, {b['param_bytes'] / 1e9:.3f} GB) B={LM_BATCH} "
+          f"prompt={LM_PROMPT}: {TP_RANKS} ranks == one rank over {G} steps "
+          f"(max |err| {b['max_abs_err']:.2e} ≤ 1e-4, tokens equal); held "
+          f"a rank {', '.join(f'{h / 1e9:.3f} GB' for h in b['held_bytes'])}"
+          f" ({', '.join(f'{s:.4f}' for s in b['held_share'])} of the "
+          f"model); {card}", flush=True)
+
+    # ---- 15c: bf16 at R ranks, timed, against one rank's tokens ---------
+    c = by_name[0]["15c"]
+    ref = refs["15c"]
+    require(c["finite"], "15c: decode logits not finite")
+    for r, mine in enumerate(by_name):
+        require(torch.equal(mine["15c"]["tokens"], c["tokens"]),
+                f"15c: rank {r}'s tokens differ from rank 0's")
+    # each row's first position where R ranks' tokens leave one rank's: a
+    # flip is allowed only where one rank's top-2 gap there is at most 0.1
+    firsts, gaps_there = [], []
+    for row in range(LM_BATCH):
+        diff = (c["tokens"][row] != ref["tokens"][row]).nonzero()
+        firsts.append(int(diff[0]) if diff.numel() else None)
+        if firsts[-1] is None:
+            gaps_there.append(None)
+            continue
+        top2 = ref["logits"][firsts[-1]][row, -1].float().topk(2).values
+        gaps_there.append(float(top2[0] - top2[1]))
+        require(gaps_there[-1] <= 0.1,
+                f"15c: row {row}'s token {firsts[-1]} differs from one "
+                f"rank's, whose top-2 gap there is {gaps_there[-1]}")
+    same = [f"row {r}: " + ("all equal" if f is None else
+                            f"equal up to {f} (gap there {g:.3g})")
+            for r, (f, g) in enumerate(zip(firsts, gaps_there))]
+    coll = c["decode_collectives"]
+    share = coll["seconds"] / (c["decode_ms_median"] / 1e3)
+    out["15c"] = {
+        "config": f"{LM_ARCH} (configs/llama3_2_1b.py) bf16, weights from "
+                  f"seed {LM_SEED}",
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+        **{k: v for k, v in c.items() if k not in ("tokens", "name")},
+        "collective_share_of_step": share,
+        "first_divergence": firsts,
+        "one_rank_top2_gap_there": gaps_there,
+        "ranks_peak_memory_bytes": [m["15c"]["peak_memory_bytes"]
+                                    for m in by_name]}
+    peaks = ", ".join(f"{m['15c']['peak_memory_bytes'] / 2 ** 30:.2f}"
+                      for m in by_name
+                      if m["15c"]["peak_memory_bytes"] is not None)
+    print(f"15c {LM_ARCH} full bf16 on {TP_RANKS} ranks ({r0['backend']}) "
+          f"B={LM_BATCH} prompt={LM_PROMPT} gen={LM_GEN}: generate "
+          f"{c['generate_s'][0]:.2f} s first, {c['generate_s'][1]:.3f} s "
+          f"warm ({c['tokens_per_s']:.1f} tok/s); prefill "
+          f"{c['prefill_ms']:.2f} ms; decode {c['decode_ms_median']:.2f} ms "
+          f"a step (median of {LM_GEN}); a decode step's collectives "
+          f"{coll['counts']}, {coll['total_bytes']:.0f} wire bytes, "
+          f"{coll['seconds'] * 1e3:.2f} ms ({share:.1%} of the step); peak "
+          f"{peaks} GiB a rank; tokens against one rank's (a flip only "
+          f"where its top-2 gap ≤ 0.1): {'; '.join(same)}; {card}",
+          flush=True)
+    prof = c.get("decode_profile")
+    if prof:
+        print(f"15c a traced decode step on rank 0: {prof['device_ms']:.2f} "
+              f"ms of device time in {prof['device_events']} events over "
+              f"{prof['wall_ms']:.2f} ms (busy {prof['busy_share']:.1%}); "
+              f"collective seconds by kind (median a step) "
+              f"{ {k: round(v * 1e3, 2) for k, v in c['collective_s_by_kind'].items()} } ms",
+              flush=True)
+    launched_here = {k: v - before[k] for k, v in common.LAUNCHES.items()
+                     if v - before[k]}
+    require(not launched_here, f"15: the grid path launched {launched_here}")
+    out["port_kernel_launches"] = launched_here
+    out["one_rank_s"], out["grid_s"] = ref_s, grid_s
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"phase 15 took {out['phase_s']:.1f} s (one rank {ref_s:.1f} s, "
+          f"spawn + ranks {grid_s:.1f} s)", flush=True)
+    return out
+
+
 def profile(torch, fn) -> dict:
     """Device time by kernel name over one call of fn, the busy share, and
     the device time of the port's kernels (in all and by kernel) against
@@ -3756,6 +4081,7 @@ def main() -> int:
                                beta64, grid)
     lm = drive_lm_path(torch, np, dev, common, card)
     train = drive_train_path(torch, np, dev, common, card)
+    tp = drive_tp_path(torch, np, dev, common, card)
     per_he_mul = {key: sum(n * r[key] for k, counts in
                            HE_MUL_SHAPE_LAUNCHES.items()
                            for n, r in zip(counts, per_kernel[k]))
@@ -3885,6 +4211,7 @@ def main() -> int:
                 f"scaling measurement", **finish, "card": card}}))
     print(json.dumps({"lm": lm}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"tp": tp}))
     print(f"chip_smoke took {time.perf_counter() - smoke_t0:.1f} s",
           flush=True)
     print(card, flush=True)

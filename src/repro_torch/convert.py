@@ -26,7 +26,9 @@ gradient norm sums and its compressed all-reduce numbers the leaves),
 :func:`lm_stack` / :func:`lm_unstack` join per-layer tensors into the
 reference's leaves and split them again, and :func:`lm_tree` /
 :func:`lm_untree` nest those leaves as the reference's tree (what a
-checkpoint stores). Weights keep their ``(d_in, d_out)``
+checkpoint stores). :func:`lm_leaves` names the parameters behind each
+reference leaf, and :func:`lm_cache_tree` nests a cache's tensors as the
+reference's cache tree (the placement rules read both). Weights keep their ``(d_in, d_out)``
 orientation, so nothing is transposed.
 """
 
@@ -42,7 +44,8 @@ from repro_torch.core.context import resolve_device
 
 __all__ = ["from_numpy", "to_numpy", "lm_params_from_numpy",
            "lm_params_to_numpy", "lm_cache_from_numpy", "lm_cache_to_numpy",
-           "lm_order", "lm_stack", "lm_unstack", "lm_tree", "lm_untree",
+           "lm_order", "lm_leaves", "lm_stack", "lm_unstack", "lm_tree",
+           "lm_untree", "lm_cache_tree",
            "opt_state_from_numpy", "opt_state_to_numpy"]
 
 
@@ -266,6 +269,14 @@ def lm_cache_to_numpy(cache: dict, cfg) -> dict:
     return _unflatten(flat, _lists(cfg))
 
 
+def lm_cache_tree(cache: dict, cfg) -> dict:
+    """The reference's cache tree of the port's `cache` tensors, in
+    `cfg`'s layout (stacked leaves are new tensors)."""
+    flat = _from_per_layer(_flatten(cache), cfg, "stacked", "list", "list",
+                           stack=torch.stack)
+    return _unflatten(flat, _lists(cfg))
+
+
 # ---- the training side -----------------------------------------------------
 
 def _lists(cfg) -> tuple:
@@ -279,11 +290,17 @@ def _path_key(name: str) -> tuple:
                  for c in name.split("."))
 
 
+def lm_leaves(names, cfg) -> dict:
+    """{reference leaf (dotted): the parameter name behind it, or the list
+    of its layers' names for a stacked leaf}."""
+    return _from_per_layer({n: n for n in names}, cfg, "layers",
+                           "layers_list", "layers", stack=list)
+
+
 def lm_order(names, cfg) -> list:
     """Parameter names in the reference's flatten order of their leaves
     (a stacked leaf's layers one after another)."""
-    flat = _from_per_layer({n: n for n in names}, cfg, "layers",
-                           "layers_list", "layers", stack=list)
+    flat = lm_leaves(names, cfg)
     out = []
     for ref in sorted(flat, key=_path_key):
         out.extend(flat[ref] if isinstance(flat[ref], list) else

@@ -13,10 +13,15 @@
   - sharding:    the HE placement rules on a grid (data_axes,
                  he_limb_sharding, he_eval_sharding: the GSPMD split of
                  the primes) and he_expected_collectives, the reference's
-                 prediction of a served op's collective schedule.
-  - comm:        the collectives of the HE path, each recorded (kind,
-                 bytes, ring wire bytes, seconds) in the grid's "step" or
-                 "feed" log.
+                 prediction of a served op's collective schedule; the LM
+                 rules (batch_spec, param_sharding_rules,
+                 cache_sharding_rules, zero1_opt_sharding) and shard_lm /
+                 load_lm_shard, a model's shard on a rank for
+                 tensor-parallel serving.
+  - comm:        the collectives of the HE path and of the LM's
+                 tensor-parallel forward, each recorded (kind, bytes, ring
+                 wire bytes, seconds) in one of the grid's logs ("step",
+                 "feed", "prefill", "decode").
   - record:      ``python -m repro_torch.dist --record``: the measured
                  schedule of every served op in SHARD_MANIFEST.json's
                  schema.

@@ -13,6 +13,9 @@ two logs:
     results gathered from the ranks, keys and batches broadcast to the
     serving followers.
 
+The LM's tensor-parallel forward keeps its own logs the same way,
+``"prefill"`` and ``"decode"`` (a log is made on its first record).
+
 A record holds the kind, the dtype, the payload bytes S, the axis and its
 size g, the host seconds the blocking call took, and the ring-model wire
 bytes per rank, the model of
@@ -65,7 +68,7 @@ def _wire(kind: str, size: float, g: int) -> float:
 def _record(grid, book: str, kind: str, t: torch.Tensor, full: int,
             axis: str, t0: float) -> None:
     g = grid.axis_size(axis)
-    grid.log[book].append({
+    grid.log.setdefault(book, []).append({
         "kind": kind, "dtype": str(t.dtype).removeprefix("torch."),
         "bytes": full, "axis": axis, "group_size": g,
         "wire_bytes": _wire(kind, full, g),
@@ -146,7 +149,7 @@ def broadcast(grid, t: torch.Tensor, *, src: int = 0, axis: str = "model",
 def reset(grid, book: Optional[str] = None) -> None:
     """Empty one log (or both)."""
     for b in ([book] if book else list(grid.log)):
-        grid.log[b].clear()
+        grid.log.setdefault(b, []).clear()
 
 
 def summary(grid, book: str = "step") -> dict:
@@ -156,7 +159,8 @@ def summary(grid, book: str = "step") -> dict:
     counts: dict = {}
     wire: dict = {}
     axes = set()
-    for rec in grid.log[book]:
+    log = grid.log.get(book, [])
+    for rec in log:
         k = rec["kind"]
         counts[k] = counts.get(k, 0) + 1
         wire[k] = wire.get(k, 0.0) + rec["wire_bytes"]
@@ -164,5 +168,5 @@ def summary(grid, book: str = "step") -> dict:
     return {"counts": counts, "bytes": wire,
             "total_bytes": float(sum(wire.values())),
             "group_axes": sorted(axes),
-            "payload_bytes": sum(r["bytes"] for r in grid.log[book]),
-            "seconds": sum(r["seconds"] for r in grid.log[book])}
+            "payload_bytes": sum(r["bytes"] for r in log),
+            "seconds": sum(r["seconds"] for r in log)}

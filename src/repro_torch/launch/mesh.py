@@ -8,6 +8,8 @@ issues the collectives itself (:mod:`repro_torch.dist.comm`), over
 
   - :class:`HostGrid` holds the ``(data, model)`` sizes, this rank's
     coordinates, the model and data sub-groups, the device and the backend;
+    :class:`GridShape` the sizes alone (what a placement rule of
+    ``dist.sharding`` reads of a grid);
   - :func:`make_host_grid` builds one in a rank (``torch.distributed``
     initialised from an explicit ``init_method``; a grid of size 1 creates
     no process group and issues no collective, as the reference's
@@ -47,8 +49,9 @@ import torch
 
 from repro_torch.core.context import resolve_device
 
-__all__ = ["HostGrid", "make_host_grid", "grid_devices", "grid_backend",
-           "spawn_grid", "spawn_followers", "FollowerGroup", "single_grid"]
+__all__ = ["HostGrid", "GridShape", "make_host_grid", "grid_devices",
+           "grid_backend", "spawn_grid", "spawn_followers", "FollowerGroup",
+           "single_grid"]
 
 # the time limit of every collective and of every wait on a peer
 DEFAULT_TIMEOUT_S = 300.0
@@ -119,6 +122,18 @@ class HostGrid:
         import torch.distributed as dist
         if self.size > 1 and dist.is_initialized():
             dist.destroy_process_group()
+
+
+@dataclasses.dataclass(frozen=True)
+class GridShape:
+    """A grid's axis sizes alone: what the LM placement rules of
+    ``dist.sharding`` read of a grid, without a HostGrid's processes."""
+
+    data: int = 1
+    model: int = 1
+
+    def axis_size(self, axis: str) -> int:
+        return {"data": self.data, "model": self.model}[axis]
 
 
 def grid_devices(device: str | torch.device, size: int

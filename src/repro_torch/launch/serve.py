@@ -19,9 +19,12 @@ its workers), driven by a :class:`repro_torch.client.HESession`.
 Without ``--he`` the LM path runs, as in the JAX package's
 ``launch/serve.py``: the ``--arch`` model (``--preset smoke`` its
 ``reduced()`` config, ``full`` the published one) with weights drawn from
-``--seed``, a random prompt, :func:`generate`. It runs on one device;
-``--model-shards`` above 1 is refused there (the LM's parameter sharding
-rules come with the training step).
+``--seed``, a random prompt, :func:`generate`. ``--model-shards R`` spawns
+R model ranks (data size 1; ``launch.mesh.spawn_grid``), each of which
+builds the model from ``--seed``, keeps its shard
+(``dist.sharding.shard_lm``, tensor parallel as the reference's
+``param_sharding_rules(fsdp_params=False)``) and runs
+``generate(grid=)``; on one card the ranks share it (gloo).
 
 With ``--he`` this is the JAX package's ``serve_he``, at its SMOKE
 parameters (``boot_params()`` with ``--bootstrap``). ``--model-shards R``
@@ -54,6 +57,8 @@ from repro_torch.core.keys import keygen
 from repro_torch.core.params import HEParams, test_params
 from repro_torch.hserve import HEFrontend, degree4_demo_circuit
 from repro_torch.hserve.server import serve_follower
+from repro_torch.dist import comm
+from repro_torch.dist.sharding import batch_rows, shard_lm
 from repro_torch.launch.mesh import spawn_grid
 from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.models.config import ModelConfig
@@ -67,19 +72,34 @@ SMOKE: HEParams = test_params(logN=5, beta_bits=32)
 
 @torch.no_grad()
 def generate(model, cfg: ModelConfig, tokens: torch.Tensor, gen_steps: int,
-             max_len: int, batch_extra: dict | None = None) -> torch.Tensor:
+             max_len: int, batch_extra: dict | None = None, *,
+             grid=None) -> torch.Tensor:
     """Greedy generation. tokens: (B, L) prompt. Returns (B, gen_steps)
-    int32 tokens, on the device of `model` and `tokens`."""
+    int32 tokens, on the device of `model` and `tokens`.
+
+    With `grid` (a ``launch.mesh.HostGrid``) this is one rank's part:
+    `model` is its shard (``dist.sharding.shard_lm``) and the steps run
+    across the model ranks; each data rank takes its rows
+    (``dist.sharding.batch_rows``: B/d of them where the data size d
+    divides B) and the tokens are gathered over "data" at the end. Every
+    rank returns all B rows."""
     B, L = tokens.shape
     batch = {"tokens": tokens, **(batch_extra or {})}
-    logits, cache = prefill(model, batch, cfg, max_len)
+    rows = batch_rows(grid, B) if grid is not None else slice(0, B)
+    split = rows != slice(0, B)
+    if split:
+        batch = {k: v[rows] for k, v in batch.items()}
+    logits, cache = prefill(model, batch, cfg, max_len, grid=grid)
     out = []
     tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
     for i in range(gen_steps):
         out.append(tok)
-        logits, cache = decode_step(model, cache, tok, L + i, cfg)
+        logits, cache = decode_step(model, cache, tok, L + i, cfg, grid=grid)
         tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
-    return torch.cat(out, dim=1)
+    out = torch.cat(out, dim=1)
+    if split:
+        out = comm.all_gather(grid, out, axis="data", book="decode")
+    return out
 
 
 def serve_he(batch: int, requests: int = 0, levels: int = 1,
@@ -439,12 +459,14 @@ def main(argv=None) -> None:
                          "params (logQ=336, h=2); results are held to "
                          "the plan's error bound")
     ap.add_argument("--model-shards", type=int, default=1, metavar="R",
-                    help="spread the tables, keys and every step's primes "
-                         "over R model ranks (spawned processes on "
-                         "--device; one card is shared by all, over gloo); "
-                         "with --workers, the in-process workers share one "
-                         "grid, and each worker process of --transport "
-                         "subprocess runs its own; 1 = one rank")
+                    help="spread the work over R model ranks (spawned "
+                         "processes on --device; one card is shared by "
+                         "all, over gloo): on the LM path the weights, "
+                         "tensor-parallel; with --he the tables, keys and "
+                         "every step's primes; with --workers, the "
+                         "in-process workers share one grid, and each "
+                         "worker process of --transport subprocess runs "
+                         "its own; 1 = one rank")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome trace-event JSON of the request "
@@ -540,41 +562,68 @@ def main(argv=None) -> None:
         raise SystemExit("HE serving pipeline diverged")
 
 
-def _serve_lm(args) -> None:
-    """The LM path of :func:`main`: the reference's, on `args.device`."""
-    if args.model_shards > 1:
-        raise SystemExit(
-            "--model-shards with the LM path needs the parameter sharding "
-            "rules of dist/sharding.py, which come with the LM training "
-            "step; serve the LM on one device")
-    cfg = get_arch(args.arch)
-    if args.preset == "smoke":
+def _lm_run(args: dict, dev: torch.device, grid=None) -> dict:
+    """The LM path's model, prompt and timed generate on `dev` (one rank's
+    shard of them with `grid`)."""
+    cfg = get_arch(args["arch"])
+    if args["preset"] == "smoke":
         cfg = cfg.reduced()
-    dev = resolve_device(args.device)
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(
-        args.seed), dev)
-    rng = np.random.default_rng(args.seed)
+        args["seed"]), dev)
+    if grid is not None:
+        model = shard_lm(model, cfg, grid)
+    B, L = args["batch"], args["prompt_len"]
+    rng = np.random.default_rng(args["seed"])
     tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, size=(args.batch, args.prompt_len)
-    ).astype(np.int32)).to(dev)
+        0, cfg.vocab_size, size=(B, L)).astype(np.int32)).to(dev)
     extra = {}
     if cfg.enc_dec:
         extra["frames"] = torch.from_numpy(rng.normal(
-            size=(args.batch, 2 * args.prompt_len, cfg.d_model)
-        ).astype(np.float32)).to(dev)
+            size=(B, 2 * L, cfg.d_model)).astype(np.float32)).to(dev)
     if cfg.frontend == "vision":
         extra["patch_embeds"] = torch.from_numpy(rng.normal(
-            size=(args.batch, cfg.n_frontend_tokens, cfg.d_model)
+            size=(B, cfg.n_frontend_tokens, cfg.d_model)
         ).astype(np.float32)).to(dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    out = generate(model, cfg, tokens, args.gen,
-                   args.prompt_len + args.gen + 8, batch_extra=extra)
+    out = generate(model, cfg, tokens, args["gen"], L + args["gen"] + 8,
+                   batch_extra=extra, grid=grid)
     out = out.cpu()                 # waits for the device
     dt = time.perf_counter() - t0
+    run = {"tokens": out, "s": dt, "device": str(dev)}
+    if grid is not None:
+        run["grid"] = grid.describe()
+        run["decode"] = comm.summary(grid, "decode")
+        run["held_bytes"] = sum(p.numel() * p.element_size()
+                                for p in model.parameters())
+    return run
+
+
+def _serve_lm_rank(grid, args: dict) -> dict:
+    """One rank of ``--model-shards R`` on the LM path."""
+    return _lm_run(args, grid.device, grid)
+
+
+def _serve_lm(args) -> None:
+    """The LM path of :func:`main`: the reference's, on `args.device`, on
+    one device or across `args.model_shards` model ranks."""
+    kw = {k: getattr(args, k) for k in ("arch", "preset", "seed", "batch",
+                                        "prompt_len", "gen")}
+    if args.model_shards > 1:
+        run = spawn_grid(_serve_lm_rank, model=args.model_shards,
+                         device=args.device, args=(kw,))[0]
+    else:
+        run = _lm_run(kw, resolve_device(args.device))
+    out, dt = run["tokens"], run["s"]
+    where = run["device"]
+    if "grid" in run:
+        g, d = run["grid"], run["decode"]
+        where += (f" grid {g['data']}x{g['model']} ({g['backend']}, "
+                  f"{sum(d['counts'].values()) // args.gen} collectives a "
+                  f"decode step on rank 0)")
     print(f"arch={args.arch} preset={args.preset} generated "
-          f"{tuple(out.shape)} on {dev} in {dt:.2f}s "
+          f"{tuple(out.shape)} on {where} in {dt:.2f}s "
           f"({args.batch * args.gen / dt:.1f} tok/s, first run)")
     print(f"  first tokens: {out[0, :8].tolist()}")
 

@@ -8,9 +8,19 @@
   written in place.
 
 Shapes: q (B, L, H, hd); k/v (B, S, Hkv, hd); GQA groups H into Hkv bands.
+
+Across the model ranks of a grid (``tp``, a ``layers.TensorParallel``)
+attention is Megatron-style where the query and KV heads both divide:
+rank r runs heads [rH/R, (r+1)H/R) and KV heads [rHkv/R, …) on its
+columns of wq/wk/wv (so the GQA map h // (H/Hkv) holds locally), keeps
+those KV heads' cache, and sums its rows of wo over the ranks. Where the
+heads do not divide, every projection is gathered whole and every rank
+runs the one-device code with the whole cache.
 """
 
 from __future__ import annotations
+
+import types
 
 import torch
 import torch.nn.functional as F
@@ -111,13 +121,32 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     return out.reshape(B, Hkv * g, nq * bq, hd).transpose(1, 2).to(q.dtype)
 
 
+def _rank_part(p: Attention, cfg, tp):
+    """(projections, cfg, tp) this rank runs attention with: its heads'
+    columns of wq/wk/wv, wo as held, and their config; where the heads do
+    not divide, the whole layer and no tp."""
+    local = tp.local_heads(cfg)
+    if local is None:
+        return tp.gathered(p), cfg, None
+    return (types.SimpleNamespace(wq=tp.columns(p.wq), wk=tp.columns(p.wk),
+                                  wv=tp.columns(p.wv), wo=p.wo), local, tp)
+
+
+def _out(p, o, tp):
+    return dense(p.wo, o) if tp is None else tp.rows(p.wo, o)
+
+
 def attention_block(p: Attention, x, cfg, *, positions=None, causal=True,
-                    window=0, kv_x=None, use_rope=True, return_kv=False):
+                    window=0, kv_x=None, use_rope=True, return_kv=False,
+                    tp=None):
     """Full attention sub-layer (projections + blockwise core).
 
     kv_x: encoder memory for cross-attention (bidirectional, no rope).
     return_kv: also return the (rotated) k/v for prefill cache building.
+    tp: this rank's part across the model ranks (None: one device).
     """
+    if tp is not None:
+        p, cfg, tp = _rank_part(p, cfg, tp)
     B, L, _ = x.shape
     hd = cfg.hd
     src = kv_x if kv_x is not None else x
@@ -131,7 +160,7 @@ def attention_block(p: Attention, x, cfg, *, positions=None, causal=True,
         k = rope(k, positions, cfg.rope_theta)
     o = flash_attention(q, k, v, causal=causal and kv_x is None,
                         window=window)
-    out = dense(p.wo, o.reshape(B, L, cfg.n_heads * hd))
+    out = _out(p, o.reshape(B, L, cfg.n_heads * hd), tp)
     if return_kv:
         return out, k, v
     return out
@@ -154,14 +183,16 @@ def kv_to_ring_cache(k, v, S: int):
 # ---- decode path -----------------------------------------------------------
 
 def decode_attention(p: Attention, x_t, cache_k, cache_v, t: int, cfg, *,
-                     window=0, use_rope=True):
+                     window=0, use_rope=True, tp=None):
     """One-token attention against the KV cache.
 
     x_t: (B, 1, D); cache_k/v: (B, S, Hkv, hd) (S = max context or window,
-    ring-buffered when windowed); t: current absolute position (an int).
-    The new key and value are written into cache_k/v in place. Returns
-    (out (B, 1, D), cache_k, cache_v).
+    ring-buffered when windowed; this rank's KV heads under `tp`); t:
+    current absolute position (an int). The new key and value are written
+    into cache_k/v in place. Returns (out (B, 1, D), cache_k, cache_v).
     """
+    if tp is not None:
+        p, cfg, tp = _rank_part(p, cfg, tp)
     B = x_t.shape[0]
     hd = cfg.hd
     S = cache_k.shape[1]
@@ -194,4 +225,4 @@ def decode_attention(p: Attention, x_t, cache_k, cache_v, t: int, cfg, *,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", w, cache_v.float()).to(x_t.dtype)
     o = o.reshape(B, 1, cfg.n_heads * hd)
-    return dense(p.wo, o), cache_k, cache_v
+    return _out(p, o, tp), cache_k, cache_v

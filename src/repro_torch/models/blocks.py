@@ -2,7 +2,9 @@
 
 A layer is a :class:`Block` whose children carry the JAX package's keys
 (``ln1``, ``attn``/``ssm``/``rglru``, ``ln2``, ``mlp``/``moe``); the
-functions below are the reference's, on those children.
+functions below are the reference's, on those children. The serving
+paths take ``tp`` (a ``layers.TensorParallel``) to run one rank's part
+across the model ranks of a grid; None is the one-device path.
 """
 
 from __future__ import annotations
@@ -43,10 +45,10 @@ def _ffn_init(gen, cfg) -> dict:
     return {"mlp": init_swiglu(gen, cfg.d_model, cfg.d_ff, cfg.pdt)}
 
 
-def _ffn_apply(p: Block, x, cfg):
+def _ffn_apply(p: Block, x, cfg, tp=None):
     if hasattr(p, "moe"):
-        return moe_block(p.moe, x, cfg)
-    return swiglu(p.mlp, x), torch.zeros((), dtype=torch.float32,
+        return moe_block(p.moe, x, cfg, tp)
+    return swiglu(p.mlp, x, tp), torch.zeros((), dtype=torch.float32,
                                          device=x.device)
 
 
@@ -99,30 +101,30 @@ def apply_layer(p: Block, x, cfg, kind: str, positions=None):
 
 
 def apply_layer_prefill(p: Block, x, cfg, kind: str, max_len: int,
-                        positions=None):
+                        positions=None, tp=None):
     """Prefill path: like apply_layer but also builds this layer's cache."""
     if kind in ("attn", "swa"):
-        h = norm_apply(cfg.norm, p.ln1, x)
+        h = norm_apply(cfg.norm, p.ln1, x, tp)
         w = _window_for(kind, cfg)
         att, k, v = attention_block(
             p.attn, h, cfg, positions=positions, causal=True,
-            window=w, return_kv=True)
+            window=w, return_kv=True, tp=tp)
         S = min(max_len, w) if w else max_len
         ck, cv = kv_to_ring_cache(k, v, S)
         x = x + att
-        h2 = norm_apply(cfg.norm, p.ln2, x)
-        f, _ = _ffn_apply(p, h2, cfg)
+        h2 = norm_apply(cfg.norm, p.ln2, x, tp)
+        f, _ = _ffn_apply(p, h2, cfg, tp)
         return x + f, {"k": ck, "v": cv}
     if kind == "ssm":
-        out, tail, hs = _ssm_inner(p.ssm, norm_apply(cfg.norm, p.ln1, x),
-                                   cfg)
+        out, tail, hs = _ssm_inner(p.ssm, norm_apply(cfg.norm, p.ln1, x, tp),
+                                   cfg, tp=tp)
         return x + out, {"h": hs, "conv_tail": tail}
     if kind == "rglru":
         out, tail, hs = _rglru_inner(
-            p.rglru, norm_apply(cfg.norm, p.ln1, x), cfg)
+            p.rglru, norm_apply(cfg.norm, p.ln1, x, tp), cfg, tp=tp)
         x = x + out
-        h2 = norm_apply(cfg.norm, p.ln2, x)
-        f, _ = _ffn_apply(p, h2, cfg)
+        h2 = norm_apply(cfg.norm, p.ln2, x, tp)
+        f, _ = _ffn_apply(p, h2, cfg, tp)
         return x + f, {"hr": hs, "conv_tail": tail}
     raise ValueError(kind)
 
@@ -142,27 +144,28 @@ def init_layer_cache(cfg, kind: str, batch: int, max_len: int,
     raise ValueError(kind)
 
 
-def apply_layer_decode(p: Block, x_t, cache: dict, t: int, cfg, kind: str):
+def apply_layer_decode(p: Block, x_t, cache: dict, t: int, cfg, kind: str,
+                       tp=None):
     """Single-token decode. Returns (x_t, new_cache); an attention layer's
     cache tensors are written in place."""
     if kind in ("attn", "swa"):
-        h = norm_apply(cfg.norm, p.ln1, x_t)
+        h = norm_apply(cfg.norm, p.ln1, x_t, tp)
         w = _window_for(kind, cfg)
         att, ck, cv = decode_attention(p.attn, h, cache["k"], cache["v"],
-                                       t, cfg, window=w)
+                                       t, cfg, window=w, tp=tp)
         x_t = x_t + att
-        h2 = norm_apply(cfg.norm, p.ln2, x_t)
-        f, _ = _ffn_apply(p, h2, cfg)
+        h2 = norm_apply(cfg.norm, p.ln2, x_t, tp)
+        f, _ = _ffn_apply(p, h2, cfg, tp)
         return x_t + f, {"k": ck, "v": cv}
     if kind == "ssm":
         out, st = ssm_decode_step(
-            p.ssm, norm_apply(cfg.norm, p.ln1, x_t), cache, cfg)
+            p.ssm, norm_apply(cfg.norm, p.ln1, x_t, tp), cache, cfg, tp)
         return x_t + out, st
     if kind == "rglru":
         out, st = rglru_decode_step(
-            p.rglru, norm_apply(cfg.norm, p.ln1, x_t), cache, cfg)
+            p.rglru, norm_apply(cfg.norm, p.ln1, x_t, tp), cache, cfg, tp)
         x_t = x_t + out
-        h2 = norm_apply(cfg.norm, p.ln2, x_t)
-        f, _ = _ffn_apply(p, h2, cfg)
+        h2 = norm_apply(cfg.norm, p.ln2, x_t, tp)
+        f, _ = _ffn_apply(p, h2, cfg, tp)
         return x_t + f, st
     raise ValueError(kind)

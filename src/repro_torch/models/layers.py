@@ -4,23 +4,52 @@ A parameter container is an ``nn.Module`` whose attribute names are the
 JAX package's dict keys: :class:`Linear` holds ``w`` — in the reference's
 ``(d_in, d_out)`` orientation, so ``dense`` is ``x @ w`` — and an optional
 bias ``b``; :class:`Norm` holds ``scale`` and, for layernorm, ``bias``.
-Initializers draw from an explicit ``torch.Generator`` on its device.
+Initializers draw from an explicit ``torch.Generator`` on its device; on
+the ``meta`` device (:data:`SHAPES_ONLY` in place of the generator) they
+draw nothing and give shapes only.
+
+:class:`TensorParallel` is one rank's part in the tensor-parallel forward
+over the "model" axis of a grid: the layers take it as ``tp`` (None: the
+one-device path, unchanged) and split, reduce or gather through it.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import types
 
 import torch
 from torch import nn
 
 __all__ = ["rmsnorm", "layernorm", "rope", "init_linear", "init_norm",
            "dense", "norm_apply", "sinusoidal_positions",
-           "sinusoidal_position_at", "Linear", "Norm"]
+           "sinusoidal_position_at", "Linear", "Norm", "SHAPES_ONLY",
+           "TensorParallel", "held_dim"]
+
+
+class _ShapesOnly:
+    """The generator of a model on the ``meta`` device: no draws."""
+
+    device = torch.device("meta")
+
+
+SHAPES_ONLY = _ShapesOnly()
 
 
 def normal(gen: torch.Generator, shape) -> torch.Tensor:
     """Standard normal draws in f32 on the generator's device."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32)
+
+
+def uniform(gen: torch.Generator, shape) -> torch.Tensor:
+    """Uniform draws on [0, 1) in f32 on the generator's device."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.rand(shape, generator=gen, device=gen.device,
+                      dtype=torch.float32)
 
 
 class Linear(nn.Module):
@@ -85,7 +114,10 @@ def layernorm(p: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def norm_apply(kind: str, p: Norm, x: torch.Tensor) -> torch.Tensor:
+def norm_apply(kind: str, p: Norm, x: torch.Tensor, tp=None
+               ) -> torch.Tensor:
+    if tp is not None:
+        p = tp.gathered(p)
     return rmsnorm(p, x) if kind == "rmsnorm" else layernorm(p, x)
 
 
@@ -126,3 +158,108 @@ def sinusoidal_position_at(t, d: int, dtype: torch.dtype, *,
     dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)
     ang = float(t) / (10000.0 ** (dim / d))
     return _sinusoid(ang, d).to(dtype)
+
+
+# ---- tensor parallelism ----------------------------------------------------
+
+def held_dim(t: torch.Tensor):
+    """The dim along which this rank holds only its chunk of parameter `t`
+    (``dist.sharding.shard_lm`` marks it), or None for a whole one."""
+    return getattr(t, "model_dim", None)
+
+
+class TensorParallel:
+    """One rank's part in a forward split over the "model" axis of `grid`
+    (a ``launch.mesh.HostGrid``); every collective goes through
+    ``dist.comm`` into the grid's log `book`.
+
+    Rank r's chunk of a dim of n is [r·n/R, (r+1)·n/R). A column-parallel
+    product takes the chunk of a weight's output dim, a row-parallel one
+    the chunk of its input dim and sums the ranks' partial products in f32
+    (one cast after, the bias added once). A weight held split is gathered
+    where a layer needs it whole."""
+
+    def __init__(self, grid, book: str):
+        self.grid, self.book = grid, book
+        self.size, self.rank = grid.model, grid.model_rank
+
+    def splits(self, *dims: int) -> bool:
+        """Whether every one of `dims` divides into R chunks."""
+        return all(n % self.size == 0 for n in dims)
+
+    def whole(self, t: torch.Tensor, dim: int) -> int:
+        """The size of `t`'s `dim` in the whole parameter."""
+        return t.shape[dim] * (self.size if held_dim(t) == dim else 1)
+
+    def local(self, t, dim: int):
+        """This rank's chunk of `t` along `dim`: `t` itself where it is held
+        split there, else a slice of the whole."""
+        if t is None or held_dim(t) == dim:
+            return t
+        t = self.full(t)
+        n = t.shape[dim] // self.size
+        return t.narrow(dim, self.rank * n, n)
+
+    def full(self, t):
+        """`t` whole: gathered over the model ranks where it is held
+        split."""
+        dim = held_dim(t) if t is not None else None
+        if dim is None:
+            return t
+        from repro_torch.dist import comm
+        out = comm.all_gather(self.grid, t.detach().movedim(dim, 0),
+                              book=self.book)
+        return out.movedim(0, dim)
+
+    def gathered(self, module: nn.Module, skip: tuple = ()):
+        """A view of `module` with the same attribute names and every
+        parameter whole (the children named in `skip` as they are)."""
+        out = {}
+        for name, child in module.named_children():
+            out[name] = child if name in skip else self.gathered(child)
+        for name, p in module.named_parameters(recurse=False):
+            out[name] = self.full(p)
+        for name in ("b", "bias"):      # optional parameters left unset
+            if name not in out and getattr(module, name, False) is None:
+                out[name] = None
+        return types.SimpleNamespace(**out)
+
+    def columns(self, p: Linear) -> types.SimpleNamespace:
+        """The column-parallel chunk of dense layer `p`."""
+        return types.SimpleNamespace(w=self.local(p.w, p.w.dim() - 1),
+                                     b=self.local(p.b, 0))
+
+    def reduce(self, partial: torch.Tensor, dtype: torch.dtype
+               ) -> torch.Tensor:
+        """The f32 sum of every rank's `partial`, cast once to `dtype`."""
+        from repro_torch.dist import comm
+        return comm.all_reduce(self.grid, partial.float().contiguous(),
+                               book=self.book).to(dtype)
+
+    def rows(self, p: Linear, x_local: torch.Tensor) -> torch.Tensor:
+        """Row-parallel dense: `x_local` (this rank's chunk of the input
+        features) times its rows of ``p.w``, summed over the ranks in f32,
+        cast once; the bias added once after."""
+        w = self.local(p.w, p.w.dim() - 2)
+        y = self.reduce(x_local.float() @ w.float(), x_local.dtype)
+        if p.b is not None:
+            y = y + self.full(p.b).to(y.dtype)
+        return y
+
+    def rows_of(self, p: Linear, x: torch.Tensor) -> torch.Tensor:
+        """Row-parallel dense of a whole input `x`: its chunk of the
+        features through :meth:`rows` where they divide, else the whole
+        layer gathered."""
+        if not self.splits(x.shape[-1]):
+            return dense(self.gathered(p), x)
+        n = x.shape[-1] // self.size
+        return self.rows(p, x.narrow(-1, self.rank * n, n))
+
+    def local_heads(self, cfg):
+        """`cfg` for this rank's heads (head_dim pinned), or None where
+        the query or KV heads do not divide over the ranks."""
+        if not self.splits(cfg.n_heads, cfg.n_kv_heads):
+            return None
+        return dataclasses.replace(cfg, n_heads=cfg.n_heads // self.size,
+                                   n_kv_heads=cfg.n_kv_heads // self.size,
+                                   head_dim=cfg.hd)

@@ -1,4 +1,9 @@
-"""Feed-forward blocks: SwiGLU (llama family) and GELU (whisper)."""
+"""Feed-forward blocks: SwiGLU (llama family) and GELU (whisper).
+
+Across model ranks (``tp``) both are Megatron pairs where d_ff divides:
+the columns of wi (and wg) then the rows of wo, one f32 all-reduce;
+else the one-device code.
+"""
 
 from __future__ import annotations
 
@@ -37,7 +42,13 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int,
     )
 
 
-def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
+def swiglu(p: SwiGLU, x: torch.Tensor, tp=None) -> torch.Tensor:
+    if tp is not None:
+        if tp.splits(tp.whole(p.wi.w, 1)):
+            wi, wg = tp.columns(p.wi), tp.columns(p.wg)
+            h = F.silu(dense(wg, x).float()).to(x.dtype)
+            return tp.rows(p.wo, h * dense(wi, x))
+        p = tp.gathered(p)
     h = F.silu(dense(p.wg, x).float()).to(x.dtype)
     return dense(p.wo, h * dense(p.wi, x))
 
@@ -51,7 +62,13 @@ def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     )
 
 
-def gelu_mlp(p: GeluMLP, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(p: GeluMLP, x: torch.Tensor, tp=None) -> torch.Tensor:
+    if tp is not None:
+        if tp.splits(tp.whole(p.wi.w, 1)):
+            h = F.gelu(dense(tp.columns(p.wi), x).float(),
+                       approximate="tanh").to(x.dtype)
+            return tp.rows(p.wo, h)
+        p = tp.gathered(p)
     # jax.nn.gelu is the tanh approximation by default
     h = F.gelu(dense(p.wi, x).float(), approximate="tanh").to(x.dtype)
     return dense(p.wo, h)

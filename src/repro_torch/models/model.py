@@ -12,6 +12,15 @@ layer in the backward pass, ``"dots"`` keeps the matmul outputs); remat
 changes no value. A cache is ``{"list": [one dict a layer]}``, or
 ``{"dec": [...]}`` for the encoder-decoder; decode writes attention
 caches in place.
+
+``prefill`` and ``decode_step`` take ``grid=`` (a ``launch.mesh.HostGrid``)
+to run one rank's part of a model sharded over its "model" axis by
+``dist.sharding.shard_lm``: the vocab-split embedding is a masked local
+lookup summed over the ranks, the vocab-split logits are gathered whole
+before anyone takes an argmax, and each layer runs as its module says
+(``layers.TensorParallel``). Their collectives are recorded in the grid's
+"prefill" and "decode" logs. With no grid, or a model size of 1, the
+one-device path runs unchanged.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ from torch import nn
 
 from repro_torch.core.context import resolve_device
 from repro_torch.models.attention import (
-    _split_heads, attention_block, decode_attention, init_attn,
+    _rank_part, _split_heads, attention_block, decode_attention, init_attn,
     kv_to_ring_cache,
 )
 from repro_torch.models.blocks import (
@@ -34,8 +43,9 @@ from repro_torch.models.blocks import (
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
-    Linear, Norm, dense, init_linear, init_norm, norm_apply, normal,
-    sinusoidal_position_at, sinusoidal_positions,
+    SHAPES_ONLY, Linear, Norm, TensorParallel, dense, held_dim, init_linear,
+    init_norm, norm_apply, normal, sinusoidal_position_at,
+    sinusoidal_positions,
 )
 from repro_torch.models.mlp import gelu_mlp, init_gelu_mlp
 
@@ -70,8 +80,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device: str | torch.device = "cuda") -> LM:
     """The model at `cfg`'s shapes, dtypes and init scales on `device`
     (default the card; raises without CUDA), drawn from `generator` (on
-    that device; default one seeded 0)."""
+    that device; default one seeded 0). On ``device="meta"`` nothing is
+    drawn: the model has the shapes and dtypes only."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        if generator is not None:
+            raise ValueError("a model on the meta device draws nothing")
+        generator = SHAPES_ONLY
     gen = generator if generator is not None \
         else torch.Generator(device=dev).manual_seed(0)
     if torch.device(gen.device).type != dev.type:
@@ -152,18 +167,18 @@ def _run_stack(model: LM, x, cfg, positions=None):
     return x, aux_total
 
 
-def _encode_frames(model: LM, frames, cfg):
+def _encode_frames(model: LM, frames, cfg, tp=None):
     """Whisper encoder over stub frame embeddings (B, S, D)."""
     x = frames.to(cfg.adt)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model, cfg.adt,
                                  device=x.device)[None]
     for lp in model.enc["layers"]:
-        h = norm_apply(cfg.norm, lp.ln1, x)
+        h = norm_apply(cfg.norm, lp.ln1, x, tp)
         x = x + attention_block(lp.attn, h, cfg, causal=False,
-                                use_rope=False)
-        h2 = norm_apply(cfg.norm, lp.ln2, x)
-        x = x + gelu_mlp(lp.mlp, h2)
-    return norm_apply(cfg.norm, model.enc["ln_post"], x)
+                                use_rope=False, tp=tp)
+        h2 = norm_apply(cfg.norm, lp.ln2, x, tp)
+        x = x + gelu_mlp(lp.mlp, h2, tp)
+    return norm_apply(cfg.norm, model.enc["ln_post"], x, tp)
 
 
 def _decoder_stack_encdec(model: LM, x, memory, cfg):
@@ -179,9 +194,38 @@ def _decoder_stack_encdec(model: LM, x, memory, cfg):
     return x
 
 
-def _embed(model: LM, tokens, cfg):
+def _embed(model: LM, tokens, cfg, tp=None):
     # gather, then cast: the reference casts the table first, same values
-    return model.tok_embed[tokens].to(cfg.adt)
+    table = model.tok_embed
+    if tp is None or held_dim(table) is None:
+        return table[tokens].to(cfg.adt)
+    # this rank's vocab rows; a token elsewhere looks up zeros, so the f32
+    # sum over the ranks is the one row, exactly
+    n = table.shape[0]
+    idx = tokens.long() - tp.rank * n
+    inside = (idx >= 0) & (idx < n)
+    rows = table[idx.clamp(0, n - 1)].float()
+    rows = torch.where(inside[..., None], rows, torch.zeros((), device=rows
+                                                            .device))
+    return tp.reduce(rows, cfg.adt)
+
+
+def _logits(model: LM, x, tp=None):
+    """f32 logits of `x`; the vocab-split head's gathered whole."""
+    head = model.lm_head
+    if tp is None or held_dim(head.w) is None:
+        return dense(head, x).float()
+    part = dense(tp.columns(head), x).float()
+    from repro_torch.dist import comm
+    whole = comm.all_gather(tp.grid, part.movedim(-1, 0), book=tp.book)
+    return whole.movedim(0, -1)
+
+
+def _tp(grid, book: str):
+    """This rank's TensorParallel on `grid` (None without one)."""
+    if grid is None or grid.model == 1:
+        return None
+    return TensorParallel(grid, book)
 
 
 # --------------------------------------------------------------------------
@@ -254,58 +298,62 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
 
 
 @torch.no_grad()
-def prefill(model: LM, batch: Batch, cfg: ModelConfig, max_len: int):
+def prefill(model: LM, batch: Batch, cfg: ModelConfig, max_len: int, *,
+            grid=None):
     """Run the prompt, build the cache. Returns (last-token logits, cache).
 
     Patch embeddings are not prepended here, as in the reference (only
-    forward_train reads them)."""
+    forward_train reads them). With `grid`, this rank's part of a sharded
+    model (see the module docstring)."""
+    tp = _tp(grid, "prefill")
     tokens = batch["tokens"]
     B, L = tokens.shape
-    x = _embed(model, tokens, cfg)
+    x = _embed(model, tokens, cfg, tp)
     dev = x.device
     kinds = cfg.layer_kinds
 
     if cfg.enc_dec:
-        memory = _encode_frames(model, batch["frames"], cfg)
+        memory = _encode_frames(model, batch["frames"], cfg, tp)
         x = x + sinusoidal_positions(L, cfg.d_model, cfg.adt,
                                      device=dev)[None]
         caches = []
         for lp in model.dec["layers"]:
-            h = norm_apply(cfg.norm, lp.ln1, x)
+            h = norm_apply(cfg.norm, lp.ln1, x, tp)
             att, k, v = attention_block(lp.self_attn, h, cfg, causal=True,
-                                        use_rope=False, return_kv=True)
+                                        use_rope=False, return_kv=True,
+                                        tp=tp)
             ck, cv = kv_to_ring_cache(k, v, max_len)
             x = x + att
-            hx = norm_apply(cfg.norm, lp.ln_x, x)
+            hx = norm_apply(cfg.norm, lp.ln_x, x, tp)
             xatt, xk, xv = attention_block(lp.cross_attn, hx, cfg,
                                            kv_x=memory, use_rope=False,
-                                           return_kv=True)
+                                           return_kv=True, tp=tp)
             x = x + xatt
-            h2 = norm_apply(cfg.norm, lp.ln2, x)
-            x = x + gelu_mlp(lp.mlp, h2)
+            h2 = norm_apply(cfg.norm, lp.ln2, x, tp)
+            x = x + gelu_mlp(lp.mlp, h2, tp)
             caches.append({"k": ck, "v": cv, "xk": xk, "xv": xv})
-        x = norm_apply(cfg.norm, model.ln_f, x)
-        logits = dense(model.lm_head, x[:, -1:]).float()
-        return logits, {"dec": caches}
+        x = norm_apply(cfg.norm, model.ln_f, x, tp)
+        return _logits(model, x[:, -1:], tp), {"dec": caches}
 
     positions = torch.arange(L, device=dev)[None, :]
     caches = []
     for i, lp in enumerate(model.layers):
         x, c = apply_layer_prefill(lp, x, cfg, kinds[i], max_len,
-                                   positions=positions)
+                                   positions=positions, tp=tp)
         caches.append(c)
-    x = norm_apply(cfg.norm, model.ln_f, x)
-    logits = dense(model.lm_head, x[:, -1:]).float()
-    return logits, {"list": caches}
+    x = norm_apply(cfg.norm, model.ln_f, x, tp)
+    return _logits(model, x[:, -1:], tp), {"list": caches}
 
 
 @torch.no_grad()
 def decode_step(model: LM, cache: dict, token_t: torch.Tensor, t: int,
-                cfg: ModelConfig):
+                cfg: ModelConfig, *, grid=None):
     """One decode step. token_t: (B, 1) int; t: current position (an int).
 
-    Returns (logits (B, 1, V), new_cache)."""
-    x = _embed(model, token_t, cfg)
+    Returns (logits (B, 1, V), new_cache). With `grid`, this rank's part
+    of a sharded model and its cache (see the module docstring)."""
+    tp = _tp(grid, "decode")
+    x = _embed(model, token_t, cfg, tp)
     kinds = cfg.layer_kinds
 
     if cfg.enc_dec:
@@ -314,29 +362,33 @@ def decode_step(model: LM, cache: dict, token_t: torch.Tensor, t: int,
         x = x + pos
         new = []
         for lp, c in zip(model.dec["layers"], cache["dec"]):
-            h = norm_apply(cfg.norm, lp.ln1, x)
+            h = norm_apply(cfg.norm, lp.ln1, x, tp)
             att, ck, cv = decode_attention(lp.self_attn, h, c["k"], c["v"],
-                                           t, cfg, use_rope=False)
+                                           t, cfg, use_rope=False, tp=tp)
             x = x + att
-            hx = norm_apply(cfg.norm, lp.ln_x, x)
+            hx = norm_apply(cfg.norm, lp.ln_x, x, tp)
             # cross attention: static memory, no causal mask
-            x = x + _cross_decode(lp.cross_attn, hx, c["xk"], c["xv"], cfg)
-            h2 = norm_apply(cfg.norm, lp.ln2, x)
-            x = x + gelu_mlp(lp.mlp, h2)
+            x = x + _cross_decode(lp.cross_attn, hx, c["xk"], c["xv"], cfg,
+                                  tp)
+            h2 = norm_apply(cfg.norm, lp.ln2, x, tp)
+            x = x + gelu_mlp(lp.mlp, h2, tp)
             new.append({"k": ck, "v": cv, "xk": c["xk"], "xv": c["xv"]})
-        x = norm_apply(cfg.norm, model.ln_f, x)
-        return dense(model.lm_head, x).float(), {"dec": new}
+        x = norm_apply(cfg.norm, model.ln_f, x, tp)
+        return _logits(model, x, tp), {"dec": new}
 
     new_list = []
     for i, (lp, c) in enumerate(zip(model.layers, cache["list"])):
-        x, c2 = apply_layer_decode(lp, x, c, t, cfg, kinds[i])
+        x, c2 = apply_layer_decode(lp, x, c, t, cfg, kinds[i], tp)
         new_list.append(c2)
-    x = norm_apply(cfg.norm, model.ln_f, x)
-    return dense(model.lm_head, x).float(), {"list": new_list}
+    x = norm_apply(cfg.norm, model.ln_f, x, tp)
+    return _logits(model, x, tp), {"list": new_list}
 
 
-def _cross_decode(p, x_t, xk, xv, cfg):
-    """Decode-time cross attention against static encoder memory."""
+def _cross_decode(p, x_t, xk, xv, cfg, tp=None):
+    """Decode-time cross attention against static encoder memory (this
+    rank's KV heads under `tp`)."""
+    if tp is not None:
+        p, cfg, tp = _rank_part(p, cfg, tp)
     B = x_t.shape[0]
     hd = cfg.hd
     q = _split_heads(dense(p.wq, x_t), cfg.n_heads, hd)
@@ -346,4 +398,4 @@ def _cross_decode(p, x_t, xk, xv, cfg):
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", w, xv.float())
     o = o.to(x_t.dtype).reshape(B, 1, cfg.n_heads * hd)
-    return dense(p.wo, o)
+    return dense(p.wo, o) if tp is None else tp.rows(p.wo, o)

@@ -6,6 +6,12 @@ expert (stable), positions within each expert computed by searchsorted,
 tokens over capacity dropped into an overflow slot that is cut off.
 
 Aux load-balancing loss (Switch-style) is returned alongside.
+
+Across model ranks (``tp``) the router is gathered whole, so every rank
+routes alike; where d_ff divides, each rank runs its columns of every
+expert's wi/wg and rows of its wo, combines its partial outputs in f32
+and sums them over the ranks (one all-reduce); the dense residual is its
+own Megatron pair.
 """
 
 from __future__ import annotations
@@ -49,15 +55,23 @@ def init_moe(gen: torch.Generator, cfg) -> MoE:
     return MoE(router, wi, wg, wo, dense)
 
 
-def moe_block(p: MoE, x: torch.Tensor, cfg):
+def moe_block(p: MoE, x: torch.Tensor, cfg, tp=None):
     """x: (B, L, D) -> (y (B, L, D), aux_loss scalar)."""
+    experts = (p.wi, p.wg, p.wo)
+    split = tp is not None and tp.splits(tp.whole(p.wi, 2))
+    if split:
+        experts = (tp.local(p.wi, 2), tp.local(p.wg, 2), tp.local(p.wo, 1))
+    elif tp is not None:
+        experts = tuple(tp.full(w) for w in experts)
+    wi, wg, wo = experts
+    router = p.router.w if tp is None else tp.full(p.router.w)
     B, L, D = x.shape
     T = B * L
     E, k = cfg.n_experts, cfg.top_k
     dev = x.device
     xt = x.reshape(T, D)
 
-    logits = xt.float() @ p.router.w                              # (T, E)
+    logits = xt.float() @ router                              # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.topk(probs, k, dim=-1)                      # (T, k)
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
@@ -85,17 +99,21 @@ def moe_block(p: MoE, x: torch.Tensor, cfg):
     buf[slot_e, slot_c] = xt[tok] * keep[:, None].to(x.dtype)
     buf = buf[:, :C]                                              # (E, C, D)
 
-    h = torch.einsum("ecd,edf->ecf", buf, p.wg.to(x.dtype))
+    h = torch.einsum("ecd,edf->ecf", buf, wg.to(x.dtype))
     h = F.silu(h.float()).to(x.dtype)
-    h = h * torch.einsum("ecd,edf->ecf", buf, p.wi.to(x.dtype))
-    y_buf = torch.einsum("ecf,efd->ecd", h, p.wo.to(x.dtype))
+    h = h * torch.einsum("ecd,edf->ecf", buf, wi.to(x.dtype))
+    # split: this rank's partial sums over its d_ff chunk, in f32
+    ydt = torch.float32 if split else x.dtype
+    y_buf = torch.einsum("ecf,efd->ecd", h.to(ydt), wo.to(ydt))
 
     # combine back: each kept assignment gathers its expert output × gate
     y_assign = y_buf[slot_e, torch.clamp_max(slot_c, C - 1)]      # (T·k, D)
-    w_assign = (gate.reshape(-1)[order] * keep).to(x.dtype)
-    y = torch.zeros((T, D), dtype=x.dtype, device=dev).index_add_(
+    w_assign = (gate.reshape(-1)[order] * keep).to(ydt)
+    y = torch.zeros((T, D), dtype=ydt, device=dev).index_add_(
         0, tok, y_assign * w_assign[:, None])
+    if split:
+        y = tp.reduce(y, x.dtype)
 
     if p.dense is not None:
-        y = y + swiglu(p.dense, xt)
+        y = y + swiglu(p.dense, xt, tp)
     return y.reshape(B, L, D), aux

@@ -11,6 +11,10 @@ RG-LRU (diagonal gated linear recurrence):
 
 The recurrence runs one step a position, as ssm.py's. Decode carries
 (h, conv tail).
+
+Across model ranks (``tp``) the gates mix the whole width, so the block
+runs gathered: every leaf but ``out`` whole, the whole state on every
+rank, and ``out`` row-parallel on this rank's chunk of the width.
 """
 
 from __future__ import annotations
@@ -19,7 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import Linear, dense, init_linear, normal
+from repro_torch.models.layers import (
+    Linear, dense, init_linear, normal, uniform,
+)
 from repro_torch.models.ssm import _conv1d_causal, softplus
 
 __all__ = ["init_rglru", "rglru_block", "rglru_decode_step",
@@ -50,8 +56,7 @@ def init_rglru(gen: torch.Generator, cfg) -> RGLRU:
     conv_w = (normal(gen, (4, W)) * (4 * W) ** -0.5).to(dt)
     gate_a = init_linear(gen, W, W, torch.float32, bias=True)
     # Λ init so a = σ(Λ) ∈ (0.9, 0.999) (paper's stable range)
-    u = 0.9 + (0.999 - 0.9) * torch.rand((W,), generator=gen, device=dev,
-                                         dtype=torch.float32)
+    u = 0.9 + (0.999 - 0.9) * uniform(gen, (W,))
     lam = torch.log(u ** (1.0 / C_CONST) / (1 - u ** (1.0 / C_CONST)))
     gate_x = init_linear(gen, W, W, torch.float32, bias=True)
     out = init_linear(gen, W, D, dt, scale=W ** -0.5)
@@ -74,7 +79,10 @@ def _rglru_scan(p: RGLRU, xs, h0):
     return torch.stack(ys, dim=1), h
 
 
-def _rglru_inner(p: RGLRU, x, cfg, conv_tail=None, h0=None):
+def _rglru_inner(p: RGLRU, x, cfg, conv_tail=None, h0=None, tp=None):
+    out_lin = p.out
+    if tp is not None:
+        p = tp.gathered(p, skip=("out",))
     B, L, _ = x.shape
     W = cfg.lru_width
     y_branch = F.gelu(dense(p.in_y, x).float(), approximate="tanh")
@@ -84,7 +92,8 @@ def _rglru_inner(p: RGLRU, x, cfg, conv_tail=None, h0=None):
         h0 = torch.zeros((B, W), dtype=torch.float32, device=x.device)
     h_seq, h = _rglru_scan(p, xs.float(), h0)
     out = (h_seq * y_branch).to(x.dtype)
-    return dense(p.out, out), new_tail, h
+    out = dense(out_lin, out) if tp is None else tp.rows_of(out_lin, out)
+    return out, new_tail, h
 
 
 def rglru_block(p: RGLRU, x, cfg):
@@ -102,7 +111,7 @@ def init_rglru_state(cfg, batch: int, dtype: torch.dtype, *,
     }
 
 
-def rglru_decode_step(p: RGLRU, x_t, state: dict, cfg):
+def rglru_decode_step(p: RGLRU, x_t, state: dict, cfg, tp=None):
     out, tail, h = _rglru_inner(p, x_t, cfg, conv_tail=state["conv_tail"],
-                                h0=state["hr"])
+                                h0=state["hr"], tp=tp)
     return out, {"hr": h, "conv_tail": tail}

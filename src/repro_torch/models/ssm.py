@@ -8,6 +8,10 @@ The JAX package cuts it into chunks of ``cfg.ssm_chunk`` only so that
 training can rematerialize each chunk; the steps and their arithmetic are
 the same. Decode carries the recurrent state and a (conv-1)-deep input
 tail.
+
+Across model ranks (``tp``) in_proj's output interleaves x and z, so the
+block runs gathered: every leaf but out_proj whole, the whole state on
+every rank, and out_proj row-parallel on this rank's chunk of d_inner.
 """
 
 from __future__ import annotations
@@ -92,7 +96,10 @@ def _selective_scan(u, delta, Bc, Cc, A, D, h0):
     return y + u * D[None, None, :], h
 
 
-def _ssm_inner(p: SSM, x, cfg, conv_tail=None, h0=None):
+def _ssm_inner(p: SSM, x, cfg, conv_tail=None, h0=None, tp=None):
+    out_proj = p.out_proj
+    if tp is not None:
+        p = tp.gathered(p, skip=("out_proj",))
     B, L, _ = x.shape
     DI, R, S = cfg.d_inner, cfg.dt_rank, cfg.ssm_state
     xz = dense(p.in_proj, x)
@@ -107,7 +114,8 @@ def _ssm_inner(p: SSM, x, cfg, conv_tail=None, h0=None):
         h0 = torch.zeros((B, DI, S), dtype=torch.float32, device=x.device)
     y, h = _selective_scan(xs, delta, Bc, Cc, A, p.D, h0)
     y = (y * F.silu(z.float())).to(x.dtype)
-    return dense(p.out_proj, y), new_tail, h
+    out = dense(out_proj, y) if tp is None else tp.rows_of(out_proj, y)
+    return out, new_tail, h
 
 
 def ssm_block(p: SSM, x, cfg):
@@ -125,8 +133,8 @@ def init_ssm_state(cfg, batch: int, dtype: torch.dtype, *,
     }
 
 
-def ssm_decode_step(p: SSM, x_t, state: dict, cfg):
+def ssm_decode_step(p: SSM, x_t, state: dict, cfg, tp=None):
     """x_t: (B, 1, D). Returns (out (B, 1, D), new state)."""
     out, tail, h = _ssm_inner(p, x_t, cfg, conv_tail=state["conv_tail"],
-                              h0=state["h"])
+                              h0=state["h"], tp=tp)
     return out, {"h": h, "conv_tail": tail}

@@ -232,9 +232,27 @@ def test_lm_cli_smoke_runs_on_the_cpu(arch):
 
 
 def test_lm_cli_defaults_to_the_card_and_refuses_model_shards():
+    """The LM command line defaults to the card; --model-shards 2, once
+    refused on the LM path, now serves across two model ranks and prints
+    the one-rank line with its grid (the name is kept from the refusal)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main(["--arch", "llama3.2-1b", "--gen", "1"])
-    with pytest.raises(SystemExit, match="training step"):
-        serve.main(["--arch", "llama3.2-1b", "--device", "cpu",
-                    "--model-shards", "2"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--arch", "llama3.2-1b", "--gen", "1",
+                        "--model-shards", "2"])
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        serve.main(["--arch", "llama3.2-1b", "--preset", "smoke",
+                    "--device", "cpu", "--batch", "2", "--prompt-len", "8",
+                    "--gen", "3", "--model-shards", "2"])
+    out = buf.getvalue()
+    assert ("arch=llama3.2-1b preset=smoke generated (2, 3) on cpu grid 1x2 "
+            "(gloo, 12 collectives a decode step on rank 0)") in out, out
+    one = io.StringIO()
+    with redirect_stdout(one):
+        serve.main(["--arch", "llama3.2-1b", "--preset", "smoke",
+                    "--device", "cpu", "--batch", "2", "--prompt-len", "8",
+                    "--gen", "3"])
+    first = [ln for ln in out.splitlines() if "first tokens" in ln]
+    assert first and first[0] in one.getvalue()

@@ -1,10 +1,11 @@
-"""Rank functions of the grid tests (tests/test_torch_dist*.py).
+"""Rank functions of the grid tests (tests/test_torch_dist*.py,
+test_torch_train_dist.py, test_torch_lm_tp.py).
 
 A test spawns a grid with ``repro_torch.launch.mesh.spawn_grid``, whose
 ranks import the function they run by name; these live here, in a module
 that imports neither JAX nor the JAX package, so that a rank starts in the
-time torch takes to import. Everything runs on the CPU at
-``test_params(logN=5)``.
+time torch takes to import. Everything runs on the CPU: the HE side at
+``test_params(logN=5)``, the LM side at ``reduced()`` sizes.
 """
 
 from __future__ import annotations
@@ -462,3 +463,90 @@ def compress_dp_rank(grid, steps) -> dict:
             "losses": [h["loss"] for h in hist],
             "err": err, "g_max": float(g_max.max()),
             "log": comm.summary(grid)}
+
+
+# ---- the LM across model ranks (tests/test_torch_lm_tp.py) ------------------
+
+LM_PROMPT, LM_GEN = 12, 7          # prefill, then 6 decode steps
+
+
+def lm_config(case):
+    """The reduced() config of an (arch, overrides) case."""
+    from repro_torch.configs.registry import get_arch
+    arch, kw = case
+    return get_arch(arch).reduced(**dict(kw))
+
+
+def lm_inputs(cfg, batch: int, seed: int = 0) -> dict:
+    """A numpy-seeded prompt batch (and whisper's frames) on the CPU."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(batch, LM_PROMPT)).astype(np.int32))}
+    if cfg.enc_dec:
+        out["frames"] = torch.from_numpy(rng.normal(
+            size=(batch, 2 * LM_PROMPT, cfg.d_model)).astype(np.float32))
+    return out
+
+
+def lm_forced(model, cfg, batch: dict, toks, grid=None) -> dict:
+    """generate's logits along `toks` (prefill, then a decode step fed each
+    token but the last), the cache's shapes after prefill and the
+    collectives of the first decode step."""
+    from repro_torch.models import decode_step, prefill
+    max_len = LM_PROMPT + LM_GEN + 4
+    logits, cache = prefill(model, batch, cfg, max_len, grid=grid)
+    shapes = {f"{k}.{i}.{leaf}": tuple(t.shape)
+              for k, layers in cache.items() for i, c in enumerate(layers)
+              for leaf, t in c.items()}
+    out, step_log = [logits], None
+    for i in range(toks.shape[1] - 1):
+        if grid is not None and i == 0:
+            comm.reset(grid, "decode")
+        logits, cache = decode_step(model, cache, toks[:, i: i + 1],
+                                    LM_PROMPT + i, cfg, grid=grid)
+        if grid is not None and i == 0:
+            step_log = comm.summary(grid, "decode")
+        out.append(logits)
+    return {"logits": [t.numpy() for t in out], "step": step_log,
+            "cache_shapes": shapes}
+
+
+def lm_run(model, cfg, batch: dict, grid=None) -> dict:
+    """generate(grid=) of `batch`, then its logits along its tokens (this
+    data rank's rows of them)."""
+    from repro_torch.dist.sharding import batch_rows
+    from repro_torch.launch.serve import generate
+    B = batch["tokens"].shape[0]
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    toks = generate(model, cfg, batch["tokens"], LM_GEN,
+                    LM_PROMPT + LM_GEN + 4, batch_extra=extra, grid=grid)
+    rows = batch_rows(grid, B) if grid is not None else slice(0, B)
+    forced = lm_forced(model, cfg, {k: v[rows] for k, v in batch.items()},
+                       toks[rows], grid)
+    return {"tokens": toks.numpy(), **forced}
+
+
+def lm_rank(grid, jobs) -> list:
+    """Each job on this rank: ("seed", case, batch) builds the case's model
+    from seed 0 and shards it (``shard_lm``); ("load", case, tree) loads
+    the JAX package's parameters as this rank's shard
+    (``load_lm_shard``). Then generate(grid=) and its logits; with what
+    the rank holds."""
+    from repro_torch.dist.sharding import load_lm_shard, shard_lm
+    from repro_torch.models import init_params
+    out = []
+    for kind, case, arg in jobs:
+        cfg = lm_config(case)
+        if kind == "seed":
+            model = shard_lm(init_params(
+                cfg, torch.Generator().manual_seed(0), "cpu"), cfg, grid)
+            batch = lm_inputs(cfg, arg)
+        else:
+            model = load_lm_shard(arg, cfg, grid)
+            batch = lm_inputs(cfg, 2, seed=3)
+        res = lm_run(model, cfg, batch, grid)
+        res["held"] = {n: (tuple(p.shape), p.element_size(),
+                           getattr(p, "model_dim", None))
+                       for n, p in model.named_parameters()}
+        out.append(res)
+    return out
