@@ -140,7 +140,7 @@ Phases; any failure exits non-zero and prints no result:
    he_mul + rescale decrypts within 1e-3, the rotation and the
    conjugation within serve_he's 1e-2 (phase 3's first ciphertext
    rotated and conjugated under phase 6's keys gives the β = 2^32 errors
-   beside); no port kernel launched; he_mul at β = 2^64 timed (median of 5,
+   beside); no port kernel launched; he_mul at β = 2^64 timed (median of 3,
    host clock, and device ms and events from one profiled call) beside
    phase 3's he_mul at β = 2^32 on the plain path and on the kernels.
    10c: ``make_he_mul_step`` at B = BETA64_BATCH equals per-pair he_mul
@@ -168,7 +168,7 @@ Phases; any failure exits non-zero and prints no result:
    schedule each rank records == ``he_expected_collectives`` (counts and
    ring wire bytes), with no collective-permute; the launch counts set to
    0 before and read after (the split kernels must launch); on rank 0 the
-   step's wall (median of 5), the collectives' share of it (gloo takes the
+   step's wall (median of 3), the collectives' share of it (gloo takes the
    CUDA tensors, so the port stages nothing), device ms from one profiled
    call, and each
    rank's resident table bytes beside one rank's. 11c: phase 7's stream
@@ -278,6 +278,28 @@ Phases; any failure exits non-zero and prints no result:
    memory a rank, and the first position where the tokens leave one
    rank's, where one rank's top-2 logit gap must be at most 0.1.
 
+16. The recurrent families at full width (``models/ssm.py`` and
+   ``models/rglru.py``: their scans run in chunks, each rematerialized
+   while gradients are recorded), which reach no kernel of the port
+   (checked: the launch counts do not move). 16a falcon-mamba-7b and 16b
+   recurrentgemma-2b at their full published sizes in bf16, weights and a
+   random prompt from LM_SEED, through ``generate`` at batch REC_BATCH,
+   prompt REC_PROMPT, gen REC_GEN (tokens/s of that run); prefill timed
+   REC_PREFILL_RUNS times (median), generate's decode steps one by one
+   (median), REC_PROFILED_STEPS steps traced by torch.profiler (device
+   events, busy share), peak memory above what earlier phases hold; then
+   the same config in f32, TF32 off: the prompt's first row decoded step
+   by step from an empty cache ends within 2e-2 of prefill's logits. 16c,
+   TF32 off: each at full width and cut depth (REC_ARCHS: falcon-mamba-7b
+   2 layers, recurrentgemma-2b one whole pattern of 3) in f32, B 1, prompt
+   REC_PROMPT: prefill's logits and REC_CPU_DECODE decode steps' within
+   1e-4 of the same weights' on the CPU. 16d: falcon-mamba-7b at
+   REC_TRAIN_LAYERS layers, remat "full", B 1, L REC_TRAIN_SEQ: one
+   ``loss_fn`` forward and backward with ``ssm_chunk`` 128 and one with a
+   single chunk, under deterministic algorithms; their gradients equal bit
+   for bit, the 128-step chunks peaking lower above what is held; each
+   run's peak and wall printed.
+
 Before the last line it prints the nvidia-smi line, one JSON line of
 per-kernel numbers (``{"kernels": [...]}``: the headline times are those
 of ``headline_shape``, HE Mul's region 1 for a kernel and the batched
@@ -290,7 +312,8 @@ the circuit path's JSON line, the serving JSON line
 (``{"grid": {...}}``), the phase 12 JSON line (``{"finish": {...}}``),
 the LM JSON line (``{"lm": {...}}``), the training JSON line
 (``{"train": {...}}``), the tensor-parallel JSON line (``{"tp":
-{...}}``) and the nvidia-smi line again; the
+{...}}``), the recurrent families' JSON line (``{"recurrent": {...}}``)
+and the nvidia-smi line again; the
 last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX
 and nothing of the JAX package.
 """
@@ -422,6 +445,17 @@ TRAIN_DP_STEPS = 4
 TP_RANKS = 2
 TP_DECODE_STEPS = 8
 TP_REDUCED = (("llama3.2-1b", {"n_kv_heads": 2}), ("falcon-mamba-7b", {}))
+# Phase 16, the recurrent families at full width: each arch with 16c's
+# depth (one layer pattern at least), the serving shape, the timed
+# prefills, the traced decode steps, 16c's decode steps, and 16d's depth,
+# length and chunks (128-step chunks against one chunk)
+REC_ARCHS = (("falcon-mamba-7b", 2), ("recurrentgemma-2b", 3))
+REC_BATCH, REC_PROMPT, REC_GEN = 4, 128, 16
+REC_PREFILL_RUNS = 3
+REC_PROFILED_STEPS = 4
+REC_CPU_DECODE = 4
+REC_TRAIN_LAYERS, REC_TRAIN_SEQ = 2, 2048
+REC_TRAIN_CHUNKS = (128, 2048)
 SOURCES = {
     "modmul": ("kernels/csrc/modmul.cu",
                "src/repro/kernels/modmul/modmul.py:33"),
@@ -2229,7 +2263,7 @@ def drive_beta64_path(torch, np, dev, common, mul32, galois32=None
         "beta32_kernels": lambda: H.he_mul(a32, b32, evk32, p32)}
     he_mul = {}
     for name, fn in timed.items():
-        med, ms = median_ms(torch, fn, 5)
+        med, ms = median_ms(torch, fn, 3)
         prof = profile(torch, fn)
         he_mul[name] = {
             "ms_median": med, "ms": ms, "device_ms": prof["device_ms"],
@@ -2238,7 +2272,7 @@ def drive_beta64_path(torch, np, dev, common, mul32, galois32=None
             "port_kernel_launches": prof["port_kernel_launches"]}
     require(he_mul["beta64_plain"]["port_kernel_launches"] == 0,
             "the β=2^64 he_mul launched a port kernel")
-    print("he_mul, median of 5 (wall) and one profiled call (device): "
+    print("he_mul, median of 3 (wall) and one profiled call (device): "
           + "; ".join(f"{k} {v['ms_median']:.1f} ms wall, "
                       f"{v['device_ms']:.1f} ms device in "
                       f"{v['device_events']} events"
@@ -2264,7 +2298,7 @@ def drive_beta64_path(torch, np, dev, common, mul32, galois32=None
         require(torch.equal(ax3[i], ref.ax) and torch.equal(bx3[i], ref.bx),
                 f"β=2^64 step item {i} differs from he_mul of its pair")
     step_med, step_ms = median_ms(
-        torch, lambda: step(t1, t2, ek, *args), 5)
+        torch, lambda: step(t1, t2, ek, *args), 3)
     print(f"β=2^64 step, B = {BETA64_BATCH}: == per-pair he_mul bit for "
           f"bit; {step_med:.1f} ms a step ({step_med / BETA64_BATCH:.1f} "
           f"a HE Mul); peak {peak / 2**20:.0f} MiB above the "
@@ -2508,7 +2542,7 @@ def grid_step_rank(grid, params, evk, operands, refs) -> dict:
         if (logq, rung) == (params.logQ, "default"):
             ms = []
             comm.reset(grid)
-            for _ in range(5):
+            for _ in range(3):
                 sync(torch, dev)
                 t0 = time.perf_counter()
                 run()
@@ -2653,7 +2687,7 @@ def drive_grid_step(torch, np, params, dev, flush, pk, evk) -> dict:
         if "ms_per_step" in case:
             print(f"grid step {case['rung']:20s} B={BATCH} on "
                   f"{GRID_RANKS} ranks of one card: {case['ms_per_step']:.1f}"
-                  f" ms (median of 5), collectives "
+                  f" ms (median of 3), collectives "
                   f"{case['collective_share']:.1%} of the wall; schedule "
                   f"{case['schedule']['counts']} "
                   f"{case['schedule']['total_bytes']:.0f} B == expected; "
@@ -2766,7 +2800,7 @@ def finish_grid_rank(grid, p32, evk32, operands32, want32, p64, evk64,
     β = 2^64 the plain step at B = BETA64_BATCH (its words against the
     one-rank step of phase 10c), and at β = 2^32 the kernel step with
     iCRT "acc3" (against phase 11b's default words); each timed once
-    more (β = 2^64: median of 3). Every rank runs the same calls."""
+    more. Every rank runs the same calls."""
     import torch
     from repro_torch.dist import comm
     from repro_torch.dist import he_pipeline as hp
@@ -2776,10 +2810,10 @@ def finish_grid_rank(grid, p32, evk32, operands32, want32, p64, evk64,
 
     dev = grid.device
     out = {"rank": grid.rank}
-    for name, params, evk, xs, want, kw, reps in (
+    for name, params, evk, xs, want, kw in (
             ("acc3", p32, evk32, operands32, want32,
-             {"use_kernels": True, "icrt_strategy": "acc3"}, 1),
-            ("beta64", p64, evk64, args64, want64, {}, 3)):
+             {"use_kernels": True, "icrt_strategy": "acc3"}),
+            ("beta64", p64, evk64, args64, want64, {})):
         cache = TableCache(params, evk, device=dev, grid=grid)
         t1, t2 = cache.level_tables(params.logQ)
         st = hp.he_static(params, params.logQ)
@@ -2804,14 +2838,12 @@ def finish_grid_rank(grid, p32, evk32, operands32, want32, p64, evk64,
                 "launches": launches, "schedule": comm.summary(grid, "step"),
                 "expected": {"counts": exp["counts"],
                              "wire_bytes": exp["wire_bytes"]}}
-        ms = []
         comm.reset(grid)
-        for _ in range(reps):
-            sync(torch, dev)
-            t0 = time.perf_counter()
-            run()
-            sync(torch, dev)
-            ms.append((time.perf_counter() - t0) * 1e3)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        run()
+        sync(torch, dev)
+        ms = [(time.perf_counter() - t0) * 1e3]
         timed = comm.summary(grid, "step")
         case.update(ms=ms, ms_per_step=statistics.median(ms),
                     collective_share=timed["seconds"] * 1e3 / sum(ms))
@@ -3142,32 +3174,12 @@ def forced_logits(model, cfg, batch: dict, toks, max_len: int,
     return out
 
 
-def decode_from_empty(model, cfg, batch: dict, max_len: int, cache=None):
-    """The last logits of decoding batch["tokens"] step by step from an
-    empty cache (the encoder-decoder's cross-attention memory taken from
-    prefill's `cache`, as the reference's test does)."""
-    from repro_torch.models import decode_step, init_cache
-    toks = batch["tokens"]
-    B, L = toks.shape
-    dev = toks.device
-    if cfg.enc_dec:
-        empty = init_cache(cfg, B, max_len, enc_len=cache["dec"][0]["xk"]
-                           .shape[1], device=dev)
-        state = {"dec": [{**c2, "xk": c1["xk"], "xv": c1["xv"]}
-                         for c1, c2 in zip(cache["dec"], empty["dec"])]}
-    else:
-        state = init_cache(cfg, B, max_len, device=dev)
-    logits = None
-    for t in range(L):
-        logits, state = decode_step(model, state, toks[:, t: t + 1], t, cfg)
-    return logits
-
-
 def drive_lm_path(torch, np, dev, common, card: str) -> dict:
     """Phase 13: the LM serving path (see the module docstring)."""
     import dataclasses
     from repro_torch.configs.registry import ARCHS, get_arch
     from repro_torch.data import SyntheticLM
+    from repro_torch.examples.serve_lm import decode_from_empty
     from repro_torch.launch.serve import generate
     from repro_torch.models import decode_step, init_params, prefill
 
@@ -3978,6 +3990,253 @@ def drive_tp_path(torch, np, dev, common, card: str,
     return out
 
 
+def drive_recurrent_path(torch, np, dev, common, card: str,
+                         archs=REC_ARCHS) -> dict:
+    """Phase 16: the recurrent families at full width (see the module
+    docstring). `archs` is ((arch, 16c's depth), ...)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.examples.serve_lm import decode_from_empty
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.train import deterministic
+    from repro_torch.models import decode_step, init_params, loss_fn, prefill
+    from repro_torch.models.ssm import n_chunks_of
+
+    phase_t0 = time.perf_counter()
+    out: dict = {"card": card}
+    before = dict(common.LAUNCHES)
+    cpu = torch.device("cpu")
+    B, L, G = REC_BATCH, REC_PROMPT, REC_GEN
+    max_len = L + G + 8
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+    def weights(cfg, where=dev):
+        return init_params(cfg, torch.Generator(device=where).manual_seed(
+            LM_SEED), where)
+
+    def f32(cfg, **kw):
+        return dataclasses.replace(cfg, param_dtype="float32",
+                                   activation_dtype="float32", **kw)
+
+    for tag, (arch, _) in zip(("16a", "16b"), archs):
+        cfg = get_arch(arch)
+        tokens = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+            0, cfg.vocab_size, size=(B, L)).astype(np.int32)).to(dev)
+        # ---- 16a/16b: the full config in bf16 through generate ----------
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model = weights(cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in model.parameters())
+        t0 = time.perf_counter()
+        toks = generate(model, cfg, tokens, G, max_len)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        require(toks.shape == (B, G) and toks.dtype == torch.int32
+                and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                f"{tag}: generate gave {tuple(toks.shape)} {toks.dtype}")
+        prefill_runs = []
+        for _ in range(REC_PREFILL_RUNS):   # generate's prefill warmed up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(model, {"tokens": tokens}, cfg, max_len)
+            torch.cuda.synchronize()
+            prefill_runs.append((time.perf_counter() - t0) * 1e3)
+        require(bool(torch.isfinite(logits).all()), f"{tag}: prefill logits")
+        step_ms = []
+        for i in range(G):          # generate's steps, each timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = decode_step(model, cache, toks[:, i: i + 1],
+                                        L + i, cfg)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        require(bool(torch.isfinite(logits).all()), f"{tag}: decode logits")
+
+        def decode_window():
+            for i in range(REC_PROFILED_STEPS):
+                decode_step(model, cache, toks[:, i: i + 1], L + i, cfg)
+
+        trace = profile(torch, decode_window)
+        peak = torch.cuda.max_memory_allocated()
+        decode_ms = statistics.median(step_ms)
+        prefill_ms = statistics.median(prefill_runs)
+        row = {"config": f"{arch} at its published size, bf16, weights "
+                         f"from seed {LM_SEED}",
+               "layers": cfg.n_layers, "batch": B, "prompt": L, "gen": G,
+               "params": n_params, "param_bytes": param_bytes,
+               "init_s": init_s, "generate_s": gen_s,
+               "tokens_per_s": B * G / gen_s, "prefill_ms": prefill_ms,
+               "prefill_ms_runs": prefill_runs,
+               "decode_ms_median": decode_ms, "decode_ms": step_ms,
+               # computed, not measured: the weights read once a step at
+               # the memory rate
+               "decode_bound_ms_computed":
+                   param_bytes / HBM_BYTES_PER_S * 1e3,
+               "held_before_bytes": held, "peak_memory_bytes": peak,
+               "peak_above_held_bytes": peak - held,
+               "decode_profile": {k: trace[k] for k in (
+                   "wall_ms", "device_ms", "busy_share", "device_events",
+                   "top")},
+               "profiled_steps": REC_PROFILED_STEPS,
+               "first_tokens": toks[0, :8].tolist()}
+        del model, cache, logits
+        torch.cuda.empty_cache()
+
+        # ---- the same config in f32, TF32 off: decode == prefill ---------
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            cfg32 = f32(cfg)
+            model = weights(cfg32)
+            one = {"tokens": tokens[:1]}
+            t0 = time.perf_counter()
+            pre, _ = prefill(model, one, cfg32, max_len)
+            dec = decode_from_empty(model, cfg32, one, max_len)
+            torch.cuda.synchronize()
+            ok, err = close_to(dec, pre, 2e-2)
+            require(ok, f"{tag}: {L} decode steps differ from prefill by "
+                        f"{err}")
+            row["f32_decode_vs_prefill_max_abs_err"] = err
+            row["f32_check_s"] = time.perf_counter() - t0
+            del model, pre, dec
+            torch.cuda.empty_cache()
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+        out[arch] = row
+        print(f"{tag} {arch} full bf16 ({n_params / 1e9:.3f} B params, "
+              f"{param_bytes / 1e9:.2f} GB, init {init_s:.1f} s) B={B} "
+              f"prompt={L} gen={G}: generate {gen_s:.2f} s "
+              f"({B * G / gen_s:.1f} tok/s); prefill {prefill_ms:.1f} ms "
+              f"(median of {REC_PREFILL_RUNS}); decode {decode_ms:.2f} ms a "
+              f"step (median of {G}; the weights' bound "
+              f"{param_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); device busy "
+              f"{trace['busy_share']:.1%} over {REC_PROFILED_STEPS} steps "
+              f"({trace['device_events']} device events); peak "
+              f"{(peak - held) / 2 ** 30:.2f} GiB above the "
+              f"{held / 2 ** 30:.2f} GiB earlier phases hold; f32 at B=1: "
+              f"{L} decode steps == prefill (max |err| {err:.2e} ≤ 2e-2); "
+              f"{card}", flush=True)
+
+    # ---- 16c: full width at cut depth, f32, the card against the CPU -----
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cut = {}
+        for arch, depth in archs:
+            cfg = f32(get_arch(arch), n_layers=depth)
+            model = weights(cfg)
+            twin = init_params(cfg, device="meta")
+            twin.load_state_dict({k: v.to(cpu) for k, v in
+                                  model.state_dict().items()}, assign=True)
+            one = {"tokens": torch.from_numpy(np.random.default_rng(
+                LM_SEED).integers(0, cfg.vocab_size, size=(1, L)).astype(
+                np.int32)).to(dev)}
+            mlen = L + REC_CPU_DECODE + 8
+            t0 = time.perf_counter()
+            toks = generate(model, cfg, one["tokens"], REC_CPU_DECODE + 1,
+                            mlen)
+            mine = forced_logits(model, cfg, one, toks, mlen)
+            theirs = forced_logits(twin, cfg, {"tokens": one["tokens"]
+                                               .cpu()}, toks.cpu(), mlen)
+            worst = 0.0
+            for i, (m, w) in enumerate(zip(mine, theirs)):
+                ok, e = close_to(m, w, 1e-4)
+                require(ok, f"16c {arch}: step {i}'s logits (0: prefill) "
+                            f"differ from the CPU's by {e}")
+                worst = max(worst, e)
+            cut[arch] = {"layers": depth, "card_vs_cpu_max_abs_err": worst,
+                         "decode_steps": len(mine) - 1, "tol": 1e-4,
+                         "s": time.perf_counter() - t0}
+            del model, twin, mine, theirs
+            torch.cuda.empty_cache()
+        out["cut_depth_f32"] = cut
+        print("16c full width f32 at cut depth, the card == the CPU: "
+              + "; ".join(f"{a} {c['layers']} layers: prefill and "
+                          f"{c['decode_steps']} decode steps max |err| "
+                          f"{c['card_vs_cpu_max_abs_err']:.2e} ≤ 1e-4"
+                          for a, c in cut.items()), flush=True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+    # ---- 16d: the scan's training memory at full width -------------------
+    arch, _ = archs[0]
+    base = dataclasses.replace(get_arch(arch), n_layers=REC_TRAIN_LAYERS,
+                               remat=True, remat_policy="full")
+    model = weights(base)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(
+        LM_SEED).integers(0, base.vocab_size, size=(1, REC_TRAIN_SEQ + 1))
+        .astype(np.int32)).to(dev)}
+    batch["labels"] = batch["tokens"][:, 1:].long()
+    batch["tokens"] = batch["tokens"][:, :-1]
+    runs = {}
+    for chunk in REC_TRAIN_CHUNKS:
+        cfg = dataclasses.replace(base, ssm_chunk=chunk)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with deterministic():
+            loss, _ = loss_fn(model, batch, cfg)
+            loss.backward()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        require(all(g is not None and bool(torch.isfinite(g).all())
+                    for g in grads.values()), f"16d chunk {chunk}: gradients")
+        runs[chunk] = {"n_chunks": n_chunks_of(REC_TRAIN_SEQ, chunk),
+                       "loss": float(loss.detach()), "wall_s": wall_s,
+                       "held_before_bytes": held,
+                       "peak_above_held_bytes": peak - held, "grads": grads}
+    a, b = (runs[c] for c in REC_TRAIN_CHUNKS)
+    same = a["loss"] == b["loss"] and all(
+        torch.equal(a["grads"][k], b["grads"][k]) for k in a["grads"])
+    require(same, f"16d: the gradients with ssm_chunk {REC_TRAIN_CHUNKS[0]} "
+                  f"differ from those with {REC_TRAIN_CHUNKS[1]}")
+    require(a["peak_above_held_bytes"] < b["peak_above_held_bytes"],
+            f"16d: {REC_TRAIN_CHUNKS[0]}-step chunks peaked at "
+            f"{a['peak_above_held_bytes']} bytes, one chunk at "
+            f"{b['peak_above_held_bytes']}")
+    for r in runs.values():
+        del r["grads"]
+    out["train_memory"] = {
+        "config": f"{arch} n_layers={REC_TRAIN_LAYERS} remat full bf16, "
+                  f"B 1, L {REC_TRAIN_SEQ}", "grads_equal": same,
+        "runs": {str(c): r for c, r in runs.items()},
+        "saved_bytes": b["peak_above_held_bytes"]
+        - a["peak_above_held_bytes"]}
+    print(f"16d {arch} {REC_TRAIN_LAYERS} layers, B=1 L={REC_TRAIN_SEQ}, "
+          f"remat full: loss_fn forward+backward peaks "
+          + ", ".join(f"{r['peak_above_held_bytes'] / 2 ** 30:.3f} GiB "
+                      f"({r['wall_s']:.2f} s) with ssm_chunk {c}"
+                      for c, r in runs.items())
+          + f" above the held {a['held_before_bytes'] / 2 ** 30:.2f} GiB; "
+          f"gradients equal bit for bit; {card}", flush=True)
+    del model, batch
+    torch.cuda.empty_cache()
+
+    launched_here = {k: v - before[k] for k, v in common.LAUNCHES.items()
+                     if v - before[k]}
+    # no pallas_call lies on the recurrent paths either
+    require(not launched_here, f"16: the recurrent path launched "
+                               f"{launched_here}")
+    out["port_kernel_launches"] = launched_here
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"phase 16 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def profile(torch, fn) -> dict:
     """Device time by kernel name over one call of fn, the busy share, and
     the device time of the port's kernels (in all and by kernel) against
@@ -4082,6 +4341,7 @@ def main() -> int:
     lm = drive_lm_path(torch, np, dev, common, card)
     train = drive_train_path(torch, np, dev, common, card)
     tp = drive_tp_path(torch, np, dev, common, card)
+    rec = drive_recurrent_path(torch, np, dev, common, card)
     per_he_mul = {key: sum(n * r[key] for k, counts in
                            HE_MUL_SHAPE_LAUNCHES.items()
                            for n, r in zip(counts, per_kernel[k]))
@@ -4212,6 +4472,7 @@ def main() -> int:
     print(json.dumps({"lm": lm}))
     print(json.dumps({"train": train}))
     print(json.dumps({"tp": tp}))
+    print(json.dumps({"recurrent": rec}))
     print(f"chip_smoke took {time.perf_counter() - smoke_t0:.1f} s",
           flush=True)
     print(card, flush=True)

@@ -27,6 +27,11 @@ from repro_torch.optim.compress import compress_int8, decompress_int8
 
 __all__ = ["compressed_psum_grads", "leaf_seed", "step_seed"]
 
+# The axis a collective runs over: one axis of a launch.mesh.HostGrid
+# ("data" or "model"). The reference's may name several mesh axes at once;
+# a grid has one process group an axis, so here it names one.
+AxisNames = str
+
 _MASK = (1 << 63) - 1
 
 
@@ -53,7 +58,7 @@ def leaf_seed(seed: int, index: int) -> int:
 
 
 def compressed_psum_grads(grads: Mapping[str, torch.Tensor], grid,
-                          seed: int, axis: str = "data", *,
+                          seed: int, axis: AxisNames = "data", *,
                           noise: Optional[Sequence[torch.Tensor]] = None
                           ) -> dict:
     """Mean-reduce {name: gradient} across `grid`'s `axis` group in int8.

@@ -72,6 +72,11 @@ class LM(nn.Module):
             self.enc, self.dec = enc, dec
 
 
+# The model stands where the reference's parameter tree does: every
+# function here takes an LM in place of the reference's Params dict.
+Params = LM
+
+
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------

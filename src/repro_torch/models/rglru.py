@@ -9,8 +9,11 @@ RG-LRU (diagonal gated linear recurrence):
     a_t = a^(c·r_t)  with  a = σ(Λ), c = 8
     h_t = a_t ⊙ h_{t-1} + √(1 − a_t²) ⊙ (i_t ⊙ x_t)
 
-The recurrence runs one step a position, as ssm.py's. Decode carries
-(h, conv tail).
+The scan is chunked and rematerialized as ssm.py's, with two quirks of
+the reference's kept: the chunk is this module's ``CHUNK``, not
+``cfg.ssm_chunk``, and the chunks are checkpointed whatever the config's
+remat policy (while gradients are recorded; with none recorded there is
+nothing to keep). Decode carries (h, conv tail).
 
 Across model ranks (``tp``) the gates mix the whole width, so the block
 runs gathered: every leaf but ``out`` whole, the whole state on every
@@ -26,12 +29,13 @@ from torch import nn
 from repro_torch.models.layers import (
     Linear, dense, init_linear, normal, uniform,
 )
-from repro_torch.models.ssm import _conv1d_causal, softplus
+from repro_torch.models.ssm import _conv1d_causal, chunked, softplus
 
 __all__ = ["init_rglru", "rglru_block", "rglru_decode_step",
            "init_rglru_state", "RGLRU"]
 
 C_CONST = 8.0
+CHUNK = 128
 
 
 class RGLRU(nn.Module):
@@ -71,12 +75,17 @@ def _rglru_scan(p: RGLRU, xs, h0):
     log_a = -C_CONST * softplus(getattr(p, "lambda"))[None, None, :] * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * xs)
-    h = h0
+    h, y = chunked(_rglru_chunk, h0, (a, gated), xs.shape[1], CHUNK, True)
+    return y, h
+
+
+def _rglru_chunk(h, a, gated):
+    """The sequential steps of one chunk; returns (h, h of every step)."""
     ys = []
-    for t in range(xs.shape[1]):
+    for t in range(a.shape[1]):
         h = a[:, t] * h + gated[:, t]
         ys.append(h)
-    return torch.stack(ys, dim=1), h
+    return h, torch.stack(ys, dim=1)
 
 
 def _rglru_inner(p: RGLRU, x, cfg, conv_tail=None, h0=None, tp=None):

@@ -3,11 +3,15 @@
 x -> in_proj -> [x, z]; x -> causal depthwise conv1d -> SiLU ->
 selective scan (input-dependent Δ, B, C; diagonal A) -> ·SiLU(z) -> out_proj.
 
-The scan is the reference's sequential recurrence, one step a position.
-The JAX package cuts it into chunks of ``cfg.ssm_chunk`` only so that
-training can rematerialize each chunk; the steps and their arithmetic are
-the same. Decode carries the recurrent state and a (conv-1)-deep input
-tail.
+The scan is the reference's: an outer loop over fixed-size chunks (the
+reference's chunk-count rule, the chunks sliced as views), each chunk
+rematerialized under a non-reentrant ``torch.utils.checkpoint`` while
+gradients are recorded, with the inner sequential recurrence one step a
+position inside. Memory held for backward stays O(B·d_inner·d_state·
+n_chunks) during training, plus one chunk's steps while that chunk is
+recomputed; the steps and their arithmetic do not depend on the chunking,
+so every chunking gives the same bits. Decode carries the recurrent state
+and a (conv-1)-deep input tail.
 
 Across model ranks (``tp``) in_proj's output interleaves x and z, so the
 block runs gathered: every leaf but out_proj whole, the whole state on
@@ -24,6 +28,8 @@ from repro_torch.models.layers import Linear, dense, init_linear, normal
 
 __all__ = ["init_ssm", "ssm_block", "ssm_decode_step", "init_ssm_state",
            "SSM", "softplus"]
+
+CHUNK = 128
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -77,14 +83,39 @@ def _conv1d_causal(w, b, x, tail=None):
     return out + b.to(x.dtype), xp[:, -(K - 1):]
 
 
-def _selective_scan(u, delta, Bc, Cc, A, D, h0):
-    """u: (B, L, DI); delta: (B, L, DI); Bc/Cc: (B, L, S); A: (DI, S).
+def n_chunks_of(L: int, chunk: int) -> int:
+    """The reference's chunk count: L // chunk (at least 1), lowered until
+    it divides L (L = 20, chunk 8 → 2 chunks of 10; a prime L → 1)."""
+    n = max(1, L // chunk)
+    while L % n:
+        n -= 1
+    return n
 
-    h_t = exp(Δ_t A)·h_{t-1} + Δ_t·B_t·u_t ;  y_t = C_t·h_t + D·u_t.
-    Returns (y (B, L, DI) f32, h_final (B, DI, S) f32).
-    """
-    h = h0
-    negA = (-A)[None]
+
+def chunked(step, carry, xs: tuple, L: int, chunk: int, remat: bool):
+    """Run ``carry, ys = step(carry, *views)`` over the chunks of the time
+    axis (dim 1) of every tensor of `xs`; returns (carry, ys of every
+    chunk concatenated on dim 1). With `remat` and gradients recorded,
+    each chunk runs under a non-reentrant checkpoint: its forward keeps
+    only its inputs, and backward recomputes the chunk's steps."""
+    ch = L // n_chunks_of(L, chunk)
+    if remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        def run(*args):
+            return checkpoint(step, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+    else:
+        run = step
+    ys = []
+    for s in range(0, L, ch):
+        carry, y = run(carry, *(x[:, s: s + ch] for x in xs))
+        ys.append(y)
+    return carry, (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1))
+
+
+def _ssm_chunk(h, u, delta, Bc, Cc, negA):
+    """The sequential steps of one chunk; returns (h, y (B, ch, DI))."""
     ys = []
     for t in range(u.shape[1]):
         dt_ = delta[:, t]
@@ -92,7 +123,20 @@ def _selective_scan(u, delta, Bc, Cc, A, D, h0):
         dBu = dt_[..., None] * Bc[:, t, None, :] * u[:, t, :, None]
         h = dA * h + dBu
         ys.append(torch.einsum("bds,bs->bd", h, Cc[:, t]))
-    y = torch.stack(ys, dim=1)
+    return h, torch.stack(ys, dim=1)
+
+
+def _selective_scan(u, delta, Bc, Cc, A, D, h0, chunk=CHUNK, remat=True):
+    """u: (B, L, DI); delta: (B, L, DI); Bc/Cc: (B, L, S); A: (DI, S).
+
+    h_t = exp(Δ_t A)·h_{t-1} + Δ_t·B_t·u_t ;  y_t = C_t·h_t + D·u_t.
+    Returns (y (B, L, DI) f32, h_final (B, DI, S) f32). The time axis runs
+    in :func:`n_chunks_of` chunks, each rematerialized when `remat` is
+    set and gradients are recorded.
+    """
+    negA = (-A)[None]
+    h, y = chunked(lambda h, u, d, b, c: _ssm_chunk(h, u, d, b, c, negA),
+                   h0, (u, delta, Bc, Cc), u.shape[1], chunk, remat)
     return y + u * D[None, None, :], h
 
 
@@ -112,7 +156,11 @@ def _ssm_inner(p: SSM, x, cfg, conv_tail=None, h0=None, tp=None):
     A = torch.exp(p.A_log)
     if h0 is None:
         h0 = torch.zeros((B, DI, S), dtype=torch.float32, device=x.device)
-    y, h = _selective_scan(xs, delta, Bc, Cc, A, p.D, h0)
+    # the reference's arguments: the config's chunk, and remat unless the
+    # policy is "none" (cfg.remat itself is not read here)
+    y, h = _selective_scan(xs, delta, Bc, Cc, A, p.D, h0,
+                           chunk=cfg.ssm_chunk,
+                           remat=cfg.remat_policy != "none")
     y = (y * F.silu(z.float())).to(x.dtype)
     out = dense(out_proj, y) if tp is None else tp.rows_of(out_proj, y)
     return out, new_tail, h

@@ -120,3 +120,8 @@ def bit_reverse_indices(n: int) -> List[int]:
             x >>= 1
         out[i] = r
     return out
+
+
+def shoup_precompute(y: int, p: int, beta_bits: int) -> int:
+    """Shoup constant floor(y·β / p) for Shoup modular multiplication."""
+    return (y << beta_bits) // p

@@ -52,3 +52,13 @@ def ints_to_limb_array(
 def limb_array_to_ints(arr: np.ndarray, beta_bits: int) -> List[int]:
     """(M, n_limbs) limb matrix -> list of python ints."""
     return [limbs_to_int(row, beta_bits) for row in np.asarray(arr)]
+
+
+def signed_to_mod_q(x: int, q: int) -> int:
+    """Center-lift inverse: signed int -> representative in [0, q)."""
+    return x % q
+
+
+def mod_q_to_signed(x: int, q: int) -> int:
+    """Representative in [0, q) -> centered signed value in [-q/2, q/2)."""
+    return x - q if x >= q // 2 else x

@@ -222,9 +222,9 @@ def test_selective_scan_matches_the_reference_across_chunks():
     Bc, Cc = randn(rng, B, L, S), randn(rng, B, L, S)
     A = np.abs(randn(rng, DI, S)) + 0.5
     D, h0 = randn(rng, DI), randn(rng, B, DI, S)
+    # chunk 8 → 2 chunks of 10 in both packages
     y, h = TS._selective_scan(t(u), t(delta), t(Bc), t(Cc), t(A), t(D),
-                              t(h0))
-    # chunk 8 → 2 chunks of 10 in the reference
+                              t(h0), chunk=8)
     wy, wh = RS._selective_scan(*map(jnp.asarray, (u, delta, Bc, Cc, A, D,
                                                    h0)), chunk=8)
     close(y, wy)

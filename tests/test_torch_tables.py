@@ -98,6 +98,29 @@ def test_limb_conversions_match_reference():
         tresidue.int_to_limbs(1 << 192, 6, 32)
 
 
+def test_python_int_oracles_match_reference():
+    """shoup_precompute, signed_to_mod_q and mod_q_to_signed on random
+    ints, both word sizes, the center's edges included."""
+    rng = np.random.default_rng(7)
+    primes = _params(tparams, 5, 120).primes[:6]
+    for bits in (32, 64):
+        for p in primes:
+            for y in [0, 1, p - 1] + [int(v) for v in
+                                      rng.integers(0, p, size=16)]:
+                assert tprimes.shoup_precompute(y, p, bits) == \
+                    jprimes.shoup_precompute(y, p, bits)
+    for logq in (1, 24, 120, 1200):
+        q = 1 << logq
+        xs = [0, 1, q // 2 - 1, q // 2, q - 1, -1, -(q // 2), q, 3 * q + 5]
+        xs += [int.from_bytes(rng.bytes(logq // 8 + 2), "little")
+               - (1 << (logq + 1)) for _ in range(16)]
+        for x in xs:
+            r = tresidue.signed_to_mod_q(x, q)
+            assert r == jresidue.signed_to_mod_q(x, q) and 0 <= r < q
+            assert tresidue.mod_q_to_signed(r, q) == \
+                jresidue.mod_q_to_signed(r, q)
+
+
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
