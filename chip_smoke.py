@@ -157,12 +157,15 @@ Phases; any failure exits non-zero and prints no result:
    split at the cross-prime sum, ``icrt_partial`` and ``icrt_finish``
    (``csrc/icrt.cu``), against their plain twins bit for bit (lo, hi and
    the f64 qsum) at the shards of np₁ and np₂ into ICRT_SPLITS ranks
-   (41/40, 61/61, 21/20/20/20, 31/31/30/30), one prime, and an empty shard
+   (41/40, 61/61, 21/21/21/18, 31/31/31/29), one prime, and an empty shard
    (which launches nothing), B = 1 and BATCH, on random residues and on
    iCRT's edge inputs; the partials of each split summed and finished ==
    the fused ``icrt_op`` bit for bit; both timed (CUDA events, median of
-   20, L2 flushed) against their bounds. 11b: ``make_he_mul_step`` on the
-   2-rank grid, tables and keys from each rank's ``TableCache(grid=)``,
+   20, L2 flushed) against their bounds, the partial at rank 0's shard of
+   each split (2 ranks, the grid's, and 4), the finish on each split's
+   sums, each row with its achieved bytes per ms. 11b:
+   ``make_he_mul_step`` on the 2-rank grid, tables and keys from each
+   rank's ``TableCache(grid=)``,
    on the rungs of GRID_RUNGS at logQ and the default rung one level
    down: every output == the one-rank kernel step's bit for bit; the
    schedule each rank records == ``he_expected_collectives`` (counts and
@@ -2423,10 +2426,11 @@ def check_split_icrt(torch, np, params, dev, flush) -> dict:
                "plain_ms": time_ms(torch, plain, 3, flush),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                "int32_muls": nmul, "max_abs_err": 0}
+        row["bytes_per_ms"] = nbytes / row["ms"]
         rows[name].append(row)
-        print(f"kernel {name:13s} {label:24s} bitwise ok  {row['ms']:.4f} ms"
+        print(f"kernel {name:13s} {label:32s} bitwise ok  {row['ms']:.4f} ms"
               f"  plain {row['plain_ms']:.3f} ms  bound {b_ms:.4f} ms "
-              f"({b_by})", flush=True)
+              f"({b_by})  {row['bytes_per_ms'] / 1e9:.3f} TB/s", flush=True)
 
     for npn, out_limbs in ((np1, K), (np2, ks_limbs)):
         t = icrt_inputs(device_icrt_tables(params, npn, dev), g)
@@ -2475,24 +2479,31 @@ def check_split_icrt(torch, np, params, dev, flush) -> dict:
                   f"finish == twins (np 1 and empty shards too), splits "
                   f"{ICRT_SPLITS} == fused icrt_op on random and edge "
                   f"inputs", flush=True)
-            # timed at the 2-rank grid's shard (the larger) and the finish
-            s = prime_rows(npn, GRID_RANKS, 0)
-            ns = s.stop - s.start
+            # timed at rank 0's shard (the larger) of each split, the
+            # 2-rank grid's first, and the finish on each split's sums
             r = torch.from_numpy(icrt_split_inputs(np, primes, npn, n, rng)[
                 "random"].astype(np.uint32).view(np.int32)).to(dev)
-            ts = shard(t, s)
-            lo, hi, qsum = icrt_partial_op(r[s], ts)
             tag = f" B={B}" if B > 1 else ""
-            timed("icrt_partial", f"np={ns} of {npn}{tag}",
-                  lambda r=r[s], ts=ts: icrt_partial_op(r, ts),
-                  lambda r=r[s], ts=ts: icrt_partial_ref(r, ts),
-                  4 * ns * n + 16 * n * PL + 8 * n, n * ns * (PL + 3))
-            timed("icrt_finish", f"np={npn} out={out_limbs}{tag}",
-                  lambda a=(lo, hi, qsum), o=out_limbs: icrt_finish_op(
-                      *a, t, o),
-                  lambda a=(lo, hi, qsum), o=out_limbs: icrt_finish_ref(
-                      *a, t, o),
-                  (16 * PL + 8 + 4 * out_limbs) * n, 0)
+            sums = {}
+            for gsz in ICRT_SPLITS:
+                s = prime_rows(npn, gsz, 0)
+                ns = s.stop - s.start
+                ts = shard(t, s)
+                timed("icrt_partial", f"np={ns} of {npn}{tag}",
+                      lambda r=r[s], ts=ts: icrt_partial_op(r, ts),
+                      lambda r=r[s], ts=ts: icrt_partial_ref(r, ts),
+                      4 * ns * n + 16 * n * PL + 8 * n, n * ns * (PL + 3))
+                parts = [icrt_partial_op(r[sk], shard(t, sk)) for sk in (
+                    prime_rows(npn, gsz, k) for k in range(gsz))]
+                sums[gsz] = [sum(p[i] for p in parts) for i in range(3)]
+            for gsz in ICRT_SPLITS:
+                which = "" if gsz == GRID_RANKS else f" split {gsz}"
+                timed("icrt_finish", f"np={npn} out={out_limbs}{which}{tag}",
+                      lambda a=sums[gsz], o=out_limbs: icrt_finish_op(
+                          *a, t, o),
+                      lambda a=sums[gsz], o=out_limbs: icrt_finish_ref(
+                          *a, t, o),
+                      (16 * PL + 8 + 4 * out_limbs) * n, 0)
     return {"rows": rows, "checks": checks}
 
 

@@ -55,20 +55,58 @@
 // Split at the cross-prime sum, for the primes spread over ranks
 // (repro_torch.dist: each rank holds a shard of P's primes, and the
 // column sums and the quotient are summed across ranks before the tail):
-//   icrt_partial_launch: a shard's residues -> (lo, hi, qsum), steps 1-2
-//           of the kernel as they are; the three-word column sums leave as
-//           the canonical pair lo = w0, hi = w1 + w2·2^32 (int64), and
-//           qsum = Σ_j temp_j·p_inv_j in f64, in order, every product and
-//           sum rounded (no fused multiply-add), so that it equals
-//           core/crt.py icrt_partial bit for bit. Bound: N·np·(PL + 3)
-//           int32 multiplies against 4·np·N + 16·N·PL + 8·N bytes.
+//   icrt_partial_launch: a shard's residues -> (lo, hi, qsum): steps 1-2,
+//           the column sums leaving as the canonical pair lo = low word,
+//           hi = the rest (int64), and qsum = Σ_j temp_j·p_inv_j in f64,
+//           in order, every product and sum rounded (no fused
+//           multiply-add), so that it equals core/crt.py icrt_partial bit
+//           for bit. Bound: 4·np·N + 16·N·PL + 8·N bytes, 87-93 % of them
+//           the stores.
+//   Design:  a persistent block loops over tiles of kRows = 32
+//           coefficients. Its stores are the bound, so the tile's sums go
+//           out as two bulk asynchronous stores (cp.async.bulk, the TMA's
+//           1-D copy): rows n0..n0+31 of lo, and of hi, are one contiguous
+//           span of HBM each (16-byte aligned, n0 even), staged row-major
+//           in shared memory and sent by one thread while the block goes
+//           on to the next tile. The product must then hide under the
+//           stores: N·np·PL 32×32→64 multiply-adds on the CUDA cores
+//           (IMAD.WIDE) took as long as the stores themselves (PERF.md
+//           §6), so it runs on the FP64 tensor cores instead:
+//           with pdivp split into 16-bit halves, Σ_j temp_j·half is an
+//           integer below 2^53, exact in f64 (tile_product). The whole
+//           (np4, W) pdivp (W = PL rounded up to 4) is staged once; a
+//           tile's residues become temp (Shoup) as f64, and the next
+//           tile's arrive by cp.async while this one is multiplied; the
+//           last warp, which has the fewest n8 tiles, sums qsum. Warp w
+//           keeps 4 n8 × 2 m16 tiles of accumulators in registers over
+//           every prime (no column chunks); lo, hi = S_lo + S_hi·2^16
+//           split at bit 32.
+//   Budget:  16·kRows·PL + 8·37·np4 + 4·np4·(W + 35) bytes: 70,960 B at
+//           np 41 / PL 75 (3 blocks an SM), 115,456 B at np 61 / PL 113
+//           (2), 169,456 B at np 122 (1). A warp per 16 of W: 160 threads
+//           at PL 75, 256 at PL 113; the launch bounds cap the registers
+//           at 128.
 //   icrt_finish_launch: the summed (lo, hi, qsum) -> (N, out_limbs), steps
-//           3-4 of the kernel (the same device functions), with the column
-//           sums read from HBM chunk by chunk. Bound: (16·PL + 8 +
-//           4·out_limbs)·N bytes.
-//           Both are simple and right first: the partial kernel stores
-//           its sums through shared memory row by row (coalesced), the
-//           finish kernel stages 32 columns of lo and hi per chunk.
+//           3-4 of the fused kernel (the same device functions). Bound:
+//           (16·PL + 8 + 4·out_limbs)·N bytes; the carry sweep is a few
+//           dozen integer operations a column.
+//   Design:  a block of one warp takes kFinRows = 16 coefficients, one
+//           a lane. Its rows of lo, and of hi, are one contiguous span
+//           each, so one thread asks the TMA for each with one bulk load
+//           (cp.async.bulk into shared memory, counted by an mbarrier): no
+//           other thread spends an instruction on the loads, and HBM sees
+//           long sequential reads. Each lane then sweeps its row (an odd
+//           PL: the half-warp's 8-byte reads of one column hit 16
+//           distinct bank pairs); step 4 is the fused kernel's
+//           finish_block, within the warp. The sweep is a chain of
+//           dependent operations per row, so what it needs is many warps
+//           in flight, and shared memory bounds the rows resident on an
+//           SM: 16-row blocks put twice the warps of 32-row blocks on the
+//           same rows (9 an SM at PL 75, 6 at PL 113), and while some
+//           sweep, the others' loads are in flight.
+//   Budget:  16·kFinRows·PL + 8 + 4·(2A + 17L + 16 + L) bytes, L =
+//           min(out_limbs, A): 22,632 B at PL 75 / out 38 and 35,408 B at
+//           PL 113 / out 76.
 #include <algorithm>
 
 #include "common.cuh"
@@ -92,6 +130,119 @@ __device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src,
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One bulk asynchronous store (the TMA's 1-D copy) of `bytes` (a multiple
+// of 16; both addresses 16-byte aligned) from shared to global memory.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(src));
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(s), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// until this thread's bulk stores are complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// orders this thread's shared-memory writes before later bulk stores
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One bulk asynchronous load (the TMA's 1-D copy) of `bytes` (a multiple
+// of 16; both addresses 16-byte aligned) into shared memory, which
+// counts its bytes against mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// this thread's arrival on `bar`, which then also waits for `bytes`
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// until phase `parity` of `bar` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// D += A·B on one 16 × 8 f64 tile of the FP64 tensor cores, g = lane / 4
+// and t = lane % 4: a lane holds D[g][2t + {0, 1}] and D[g + 8][2t + {0,
+// 1}]; for m16n8k4 A[g][t] and A[g + 8][t], and B[t][g]; for m16n8k16
+// A[g + 8·(i % 2)][t + 4·(i / 2)] (i < 8) and B[t + 4i][g] (i < 4).
+__device__ __forceinline__ void dmma(double (&d)[4], double a0, double a1,
+                                     double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+__device__ __forceinline__ void dmma16(double (&d)[4], const double (&a)[8],
+                                       const double (&b)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, "
+      "{%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+// v < 2^32 exactly as a double: 2^52 + v from its bits, less 2^52
+__device__ __forceinline__ double exact_f64(uint32_t v) {
+  return __hiloint2double(0x43300000, static_cast<int>(v)) -
+         4503599627370496.0;
 }
 
 // a += x0·y0 + x1·y1 + x2·y2 + x3·y3 on a three-word accumulator: the four
@@ -197,8 +348,9 @@ __device__ __forceinline__ void chunk_product(const uint32_t* temp,
 __device__ __forceinline__ uint32_t sweep_column(Sweep& sw, uint64_t c_lo,
                                                  uint64_t c_hi, uint32_t s,
                                                  int64_t pk, int64_t hk) {
-  const uint64_t lo = (c_lo & 0xFFFFFFFFu) + (sw.carry & 0xFFFFFFFFu);
-  sw.carry = (lo >> 32) + (sw.carry >> 32) + (c_lo >> 32) + c_hi;
+  const uint64_t lo = c_lo + sw.carry;  // < 2^64: c_lo < g·2^32 and the
+                                        // carry < g·2^40 after g shards
+  sw.carry = (lo >> 32) + c_hi;
   const int64_t vk = static_cast<int64_t>(static_cast<uint32_t>(lo)) -
                      static_cast<int64_t>(s * static_cast<uint64_t>(pk)) +
                      sw.v_carry;
@@ -219,18 +371,19 @@ __device__ __forceinline__ uint32_t sweep_column(Sweep& sw, uint64_t c_lo,
 //    final borrow is [v < 0] exactly when x ≥ ⌊P/2⌋. y = v + m·P
 //    (m ∈ {−2..1}) in place in the v tile vt, then the row-major
 //    (N, out_limbs) output leaves it coalesced, with the sign fill past A.
-//    P's low L limbs go to scratch[kBM:] first, behind the fill of each
-//    row in scratch[:kBM].
+//    P's low L limbs go to scratch[BM:] first, behind the fill of each
+//    row in scratch[:BM]. BM coefficients and Threads threads (t the
+//    thread's index among them): a block, or one warp when Warp.
+template <int BM, int Threads, bool Warp>
 __device__ __forceinline__ void finish_block(const Sweep& sw, uint32_t* vt,
                                              uint32_t* scratch,
                                              const uint32_t* __restrict__ P,
                                              uint32_t* __restrict__ out,
                                              int n0, int nb, int L,
-                                             int out_limbs) {
-  const int t = threadIdx.x;
-  for (int k = t; k < L; k += kThreads) scratch[kBM + k] = P[k];
-  __syncthreads();
-  if (t < kBM) {
+                                             int out_limbs, int t) {
+  for (int k = t; k < L; k += Threads) scratch[BM + k] = P[k];
+  Warp ? __syncwarp() : __syncthreads();
+  if (t < BM) {
     const bool negative = sw.top >> 31;
     const int d = negative ? 1 : (sw.ge == 0 ? -1 : 0);
     const int64_t cz = d == 1 ? sw.cz[2] : d == 0 ? sw.cz[1] : sw.cz[0];
@@ -238,19 +391,19 @@ __device__ __forceinline__ void finish_block(const Sweep& sw, uint32_t* vt,
     const int64_t mp = d - (high ? 1 : 0);
     int64_t y_carry = 0;
     for (int k = 0; k < L; ++k) {
-      const int64_t yk = static_cast<int64_t>(vt[k * kPitch + t]) +
-                         mp * static_cast<int64_t>(scratch[kBM + k]) +
+      const int64_t yk = static_cast<int64_t>(vt[k * (BM + 1) + t]) +
+                         mp * static_cast<int64_t>(scratch[BM + k]) +
                          y_carry;
       y_carry = yk >> 32;
-      vt[k * kPitch + t] = static_cast<uint32_t>(yk);
+      vt[k * (BM + 1) + t] = static_cast<uint32_t>(yk);
     }
     scratch[t] = high ? 0xFFFFFFFFu : 0u;  // sign of y: the fill past A
   }
-  __syncthreads();
-  for (int row = t >> 5; row < nb; row += kThreads / 32) {
+  Warp ? __syncwarp() : __syncthreads();
+  for (int row = t >> 5; row < nb; row += Threads / 32) {
     uint32_t* dst = out + static_cast<size_t>(n0 + row) * out_limbs;
     for (int k = t & 31; k < out_limbs; k += 32)
-      dst[k] = k < L ? vt[k * kPitch + row] : scratch[row];
+      dst[k] = k < L ? vt[k * (BM + 1) + row] : scratch[row];
   }
 }
 
@@ -331,13 +484,91 @@ icrt_kernel(const uint32_t* __restrict__ r, const uint32_t* __restrict__ inv_p,
   }
 
   // 4. the ladder, the center-lift and the output
-  finish_block(sw, vt, buf, P, out, n0, nb, L, out_limbs);
+  finish_block<kBM, kThreads, false>(sw, vt, buf, P, out, n0, nb, L,
+                                     out_limbs, t);
 }
 
-// Pitch of a row of the partial kernel's staged sums.
-constexpr int kSumPitch = kBN + 1;
+constexpr int kRows = 32;             // coefficients a tile of the partial
+constexpr int kTempPitch = kRows + 4; // of its f64 temp rows
+constexpr int kPartialThreads = 256;  // the most threads a partial block has
+constexpr int kFinRows = 16;          // coefficients a finish block (a warp)
 
-__global__ void __launch_bounds__(kThreads)
+// Residues of the tile of coefficients n0..n0+nb−1 into raw (np4, kRows)
+// by cp.async, zero past np and nb; the caller commits and waits.
+__device__ __forceinline__ void stage_residues(const uint32_t* __restrict__ r,
+                                               uint32_t* raw, int n, int np,
+                                               int np4, int n0, int nb) {
+  for (int e = threadIdx.x; e < np4 * kRows; e += blockDim.x) {
+    const int j = e / kRows, m = e % kRows;
+    const bool ok = m < nb && j < np;
+    cp_async4(&raw[e], ok ? &r[static_cast<size_t>(j) * n + n0 + m] : r,
+              ok);
+  }
+}
+
+// Half h of pdivp word `at` as a double; sel is 0x4410 for the low half
+// and 0x4432 for the high (a byte permute).
+__device__ __forceinline__ double pdivp_half(const uint32_t* pd, int at,
+                                             unsigned sel) {
+  return exact_f64(__byte_perm(pd[at], 0, sel));
+}
+
+// The partial's product on the FP64 tensor cores: the (kRows, 2W) sums
+// S[m, 2c + h] = Σ_j temp_j[m]·half_h(pdivp[j, c]), h = 0 the low and 1
+// the high 16 bits. Warp w takes the n8 tiles nt = w + q·(warps), q < 4,
+// both m16 tiles, 16 primes a step (m16n8k16), the last < 16 by 4
+// (m16n8k4). A product of temp_j < 2^30 and a half < 2^16 is an integer
+// below 2^46, and np ≤ 122 of them sum below 2^53: exact in f64 in any
+// order.
+__device__ __forceinline__ void tile_product(const double* tempd,
+                                             const uint32_t* pd, int np4,
+                                             int W, double (&acc)[4][2][4]) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5, G = W / 4;
+  const int kq = lane & 3, r8 = lane >> 2;
+  const double* ap = tempd + kq * kTempPitch + r8;
+  const uint32_t* bp = pd + kq * W + (r8 >> 1);
+  const unsigned sel = r8 & 1 ? 0x4432u : 0x4410u;
+  int j = 0;
+#pragma unroll 1
+  for (; j + 16 <= np4; j += 16) {
+    double a[2][8];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[mt][i] = ap[(j + 4 * (i >> 1)) * kTempPitch + 16 * mt + 8 * (i & 1)];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int nt = w + q * nw;
+      if (nt < G) {
+        double b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          b[i] = pdivp_half(bp, (j + 4 * i) * W + 4 * nt, sel);
+        dmma16(acc[q][0], a[0], b);
+        dmma16(acc[q][1], a[1], b);
+      }
+    }
+  }
+#pragma unroll 1
+  for (; j < np4; j += 4) {
+    double a[4];                              // rows g, g + 8, 16 + g, 24 + g
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = ap[j * kTempPitch + 8 * i];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int nt = w + q * nw;
+      if (nt < G) {
+        const double b = pdivp_half(bp, j * W + 4 * nt, sel);
+        dmma(acc[q][0], a[0], a[1], b);
+        dmma(acc[q][1], a[2], a[3], b);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kPartialThreads, 2)
 icrt_partial_kernel(const uint32_t* __restrict__ r,
                     const uint32_t* __restrict__ inv_p,
                     const uint32_t* __restrict__ inv_p_sh,
@@ -345,63 +576,106 @@ icrt_partial_kernel(const uint32_t* __restrict__ r,
                     const double* __restrict__ p_inv,
                     const uint32_t* __restrict__ pdivp,
                     uint64_t* __restrict__ lo, uint64_t* __restrict__ hi,
-                    double* __restrict__ qsum, int n, int np, int PL) {
-  const int t = threadIdx.x;
-  const int n0 = blockIdx.x * kBM;
-  const int nb = min(kBM, n - n0);
+                    double* __restrict__ qsum, int n, int np, int PL,
+                    int tiles) {
+  const int t = threadIdx.x, bx = blockIdx.x, gx = gridDim.x;
   const int np4 = (np + 3) & ~3;
-  uint32_t* temp = dyn_smem;                  // (np4, kBM)
-  uint32_t* buf = temp + np4 * kBM;  // (np4, kBN) | (3, kBM, kSumPitch)
+  const int W = (PL + 3) & ~3;                // columns of the staged pdivp
+  const int span = kRows * PL;                // words of a tile of lo
+  uint64_t* out = reinterpret_cast<uint64_t*>(dyn_smem);  // lo, hi tiles
+  double* tempd = reinterpret_cast<double*>(out + 2 * span);
+  double* pinv = tempd + np4 * kTempPitch;    // (np4,)
+  uint32_t* pd = reinterpret_cast<uint32_t*>(pinv + np4);  // (np4, W)
+  uint32_t* raw = pd + np4 * W;               // (np4, kRows) residues
+  uint32_t* tab = raw + np4 * kRows;          // inv_p, inv_p_sh, primes
 
-  // 1. residues in, Hadamard in place; the quotient sum in the JAX
-  //    package's order of j, each product and sum rounded on its own
-  stage_temp(r, inv_p, inv_p_sh, primes, temp, n, np, np4, n0, nb);
-  __syncthreads();
-  if (t < nb) {
-    double sf = 0.0;
-    for (int j = 0; j < np; ++j)
-      sf = __dadd_rn(sf, __dmul_rn(static_cast<double>(temp[j * kBM + t]),
-                                   p_inv[j]));
-    qsum[n0 + t] = sf;
+  for (int e = t; e < np4 * W; e += blockDim.x) {
+    const int j = e / W, c = e % W;
+    pd[e] = j < np && c < PL ? pdivp[j * PL + c] : 0u;
   }
+  for (int e = np * kTempPitch + t; e < np4 * kTempPitch; e += blockDim.x)
+    tempd[e] = 0.0;                           // primes past np
+  for (int j = t; j < np; j += blockDim.x) {
+    pinv[j] = p_inv[j];
+    tab[j] = inv_p[j];
+    tab[np4 + j] = inv_p_sh[j];
+    tab[2 * np4 + j] = primes[j];
+  }
+  if (bx < tiles)
+    stage_residues(r, raw, n, np, np4, bx * kRows,
+                   min(kRows, n - bx * kRows));
+  cp_async_commit();
 
-  const int ty = t & 15, tx = t >> 4;
-  for (int k0 = 0; k0 < PL; k0 += kBN) {
-    // 2. the chunk's column sums, as in icrt_kernel
-    stage_pdivp(pdivp, buf, np, np4, PL, k0);
-    cp_async_wait_all();
+  const int lane = t & 31, w = t >> 5, nw = blockDim.x >> 5;
+  for (int tile = bx; tile < tiles; tile += gx) {
+    const int n0 = tile * kRows, nb = min(kRows, n - n0);
+    cp_async_wait<0>();
+    if (t == 0) bulk_wait_read();  // the last tile's stores have left `out`
     __syncthreads();
-    uint32_t acc[kTM][kTN][3] = {};
-    chunk_product(temp, buf, np4, PL, k0, acc);
-    __syncthreads();  // the chunk of pdivp is read: buf takes the sums
-    // the three words of each sum, row by row. A sum of np ≤ 122 products
-    // below 2^63 (temp < 2^30, a pdivp word < 2^32) is below 2^70, so w2
-    // < 2^6 (far below 2^31) and hi = w1 + w2·2^32 < 2^38 fits int64.
-#pragma unroll
-    for (int w = 0; w < 3; ++w)
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int c = 0; c < kTN; ++c)
-          buf[(w * kBM + ty * kTM + i) * kSumPitch + tx * kTN + c] =
-              acc[i][c][w];
+    // 1. Hadamard, as f64; the quotient sum in the JAX package's order
+    //    of j, each product and sum rounded on its own
+    for (int e = t; e < np * kRows; e += blockDim.x) {
+      const int j = e / kRows;
+      tempd[j * kTempPitch + e % kRows] = exact_f64(
+          shoup_mul(raw[e], tab[j], tab[np4 + j], tab[2 * np4 + j]));
+    }
     __syncthreads();
-    // out by rows: a warp stores 32 neighbouring columns of one row
-    for (int e = t; e < kBM * kBN; e += kThreads) {
-      const int row = e / kBN, c = e % kBN, k = k0 + c;
-      if (row < nb && k < PL) {
-        const size_t at = static_cast<size_t>(n0 + row) * PL + k;
-        lo[at] = buf[row * kSumPitch + c];
-        hi[at] = buf[(kBM + row) * kSumPitch + c] +
-                 (static_cast<uint64_t>(buf[(2 * kBM + row) * kSumPitch + c])
-                  << 32);
+    // the next tile's residues arrive while this one is multiplied
+    const int next = tile + gx;
+    if (next < tiles)
+      stage_residues(r, raw, n, np, np4, next * kRows,
+                     min(kRows, n - next * kRows));
+    cp_async_commit();
+    if (w == nw - 1 && lane < nb) {           // the warp with the fewest
+      double sf = 0.0;                        // n8 tiles
+      for (int j = 0; j < np; ++j)
+        sf = __dadd_rn(sf, __dmul_rn(tempd[j * kTempPitch + lane], pinv[j]));
+      qsum[n0 + lane] = sf;
+    }
+    // 2. the column sums of the tile, every prime at once; each sum
+    //    Σ_j temp_j·pdivp[j, c] = S_lo + S_hi·2^16 (below 2^69) goes to the
+    //    row-major lo and hi tiles as the canonical pair: lo its low word,
+    //    hi = its value >> 32 < 2^37
+    double acc[4][2][4] = {};
+    tile_product(tempd, pd, np4, W, acc);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = 4 * (w + q * nw) + (lane & 3);
+      if (c < PL) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {       // rows g, g + 8, 16 + g, 24 + g
+          const double* d = &acc[q][i >> 1][2 * (i & 1)];
+          const uint64_t s0 = __double2ull_rz(d[0]);
+          const uint64_t s1 = __double2ull_rz(d[1]);
+          const uint64_t x = s0 + ((s1 & 0xFFFFu) << 16);
+          const int at = (8 * i + (lane >> 2)) * PL + c;
+          out[at] = static_cast<uint32_t>(x);
+          out[span + at] = (x >> 32) + (s1 >> 16);
+        }
       }
     }
-    __syncthreads();  // the sums are stored: buf takes the next chunk
+    fence_async_shared();
+    __syncthreads();
+    if (t == 0) {
+      // rows n0..n0+nb−1: one span of lo and one of hi, sent whole but
+      // for an odd last word
+      const int words = nb * PL, bulk = words & ~1;
+      const size_t at = static_cast<size_t>(n0) * PL;
+      if (bulk) {
+        bulk_store(lo + at, out, 8u * bulk);
+        bulk_store(hi + at, out + span, 8u * bulk);
+        bulk_commit();
+      }
+      if (words & 1) {
+        lo[at + bulk] = out[bulk];
+        hi[at + bulk] = out[span + bulk];
+      }
+    }
   }
+  if (t == 0) bulk_wait();
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32)
 icrt_finish_kernel(const uint64_t* __restrict__ lo,
                    const uint64_t* __restrict__ hi,
                    const double* __restrict__ qsum,
@@ -410,47 +684,70 @@ icrt_finish_kernel(const uint64_t* __restrict__ lo,
                    uint32_t* __restrict__ out, int n, int PL, int A,
                    int out_limbs) {
   const int t = threadIdx.x;
-  const int n0 = blockIdx.x * kBM;
-  const int nb = min(kBM, n - n0);
+  const int n0 = blockIdx.x * kFinRows, nb = min(kFinRows, n - n0);
   const int L = min(out_limbs, A);
-  // the chunk's column sums, one column of kBM coefficients a row
-  uint64_t* cl = reinterpret_cast<uint64_t*>(dyn_smem);  // (kBN, kPitch)
-  uint64_t* ch = cl + kBN * kPitch;                      // (kBN, kPitch)
-  uint32_t* vt = reinterpret_cast<uint32_t*>(ch + kBN * kPitch);  // (L, kPitch)
-  uint32_t* pc = vt + L * kPitch;             // P, ⌊P/2⌋ of the chunk
-  uint32_t* scratch = pc + 2 * kBN;           // kBM + L words (step 4)
+  const int span = kFinRows * PL;             // words of the tile of lo
+  uint64_t* cl = reinterpret_cast<uint64_t*>(dyn_smem);  // (kFinRows, PL)
+  uint64_t* ch = cl + span;                   // (kFinRows, PL)
+  uint64_t* bar = ch + span;                  // the loads' mbarrier
+  uint32_t* pp = reinterpret_cast<uint32_t*>(bar + 1);  // P, ⌊P/2⌋
+  uint32_t* vt = pp + 2 * A;                  // (L, kFinRows + 1)
+  uint32_t* scratch = vt + L * (kFinRows + 1);  // kFinRows + L words
 
+  // rows n0..n0+nb−1 of lo and of hi: one span each, asked of the TMA
+  // whole but for an odd last word
+  const int words = nb * PL, bulk = words & ~1;
+  const size_t at = static_cast<size_t>(n0) * PL;
+  if (t == 0) {
+    mbar_init(bar, 1);
+    mbar_expect(bar, 16u * bulk);
+    if (bulk) {
+      bulk_load(cl, lo + at, 8u * bulk, bar);
+      bulk_load(ch, hi + at, 8u * bulk, bar);
+    }
+    if (words & 1) {
+      cl[bulk] = lo[at + bulk];
+      ch[bulk] = hi[at + bulk];
+    }
+  }
+  for (int k = t; k < A; k += 32) {
+    pp[k] = P[k];
+    pp[A + k] = P_half[k];
+  }
   // the quotient: the sum over every shard is below np, so s < np
   const uint32_t s = t < nb ? static_cast<uint32_t>(floor(qsum[n0 + t])) : 0;
+  __syncwarp();
+  mbar_wait(bar, 0);
+
+  // 3. the sweep of icrt_kernel on the summed columns, lane t on row t
+  //    (an odd pitch: the half-warp's reads of a column hit 16 bank pairs)
   Sweep sw;
-  for (int k0 = 0; k0 < A; k0 += kBN) {
-    // lo and hi of 32 columns (zero past PL and past nb); a warp reads
-    // 32 neighbouring columns of one row
-    for (int e = t; e < kBM * kBN; e += kThreads) {
-      const int row = e / kBN, c = e % kBN, k = k0 + c;
-      const bool ok = row < nb && k < PL;
-      const size_t at = static_cast<size_t>(n0 + row) * PL + k;
-      cl[c * kPitch + row] = ok ? lo[at] : 0;
-      ch[c * kPitch + row] = ok ? hi[at] : 0;
+  if (t < kFinRows) {
+    const uint64_t* rl = cl + t * PL;
+    const uint64_t* rh = ch + t * PL;
+#pragma unroll 4
+    for (int k = 0; k < A; ++k) {
+      const bool in = k < PL;
+      const uint32_t vw = sweep_column(sw, in ? rl[k] : 0, in ? rh[k] : 0,
+                                       s, pp[k], pp[A + k]);
+      if (k < L) vt[k * (kFinRows + 1) + t] = vw;
     }
-    if (t < 2 * kBN) {
-      const int k = k0 + t % kBN;
-      const uint32_t* src = t < kBN ? P : P_half;
-      pc[t] = k < A ? src[k] : 0;
-    }
-    __syncthreads();
-    // 3. the sweep of icrt_kernel on the summed columns
-    if (t < kBM)
-      for (int kk = 0; kk < kBN && k0 + kk < A; ++kk) {
-        const uint32_t vw = sweep_column(sw, cl[kk * kPitch + t],
-                                         ch[kk * kPitch + t], s, pc[kk],
-                                         pc[kBN + kk]);
-        if (k0 + kk < L) vt[(k0 + kk) * kPitch + t] = vw;
-      }
-    __syncthreads();  // the chunk is read: cl, ch take the next
   }
-  // 4. as icrt_kernel
-  finish_block(sw, vt, scratch, P, out, n0, nb, L, out_limbs);
+  // 4. as icrt_kernel, in this warp
+  finish_block<kFinRows, 32, true>(sw, vt, scratch, P, out, n0, nb, L,
+                                   out_limbs, t);
+}
+
+// The blocks of a persistent launch: one round of what fits the card at
+// once, and no more than there are tiles.
+template <typename K>
+int resident_blocks(K kernel, int threads, int smem, int tiles) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
+  return std::max(1, std::min(tiles, per_sm * sms));
 }
 
 }  // namespace
@@ -482,9 +779,10 @@ extern "C" int icrt_launch(const uint32_t* r, const uint32_t* inv_p,
 
 // A shard's np ≥ 1 primes: r: (np, n); inv_p, inv_p_sh, primes: (np,);
 // p_inv: (np,) f64; pdivp: (np, PL); lo, hi: (n, PL) int64; qsum: (n,)
-// f64. blocks, threads and smem are kernels/icrt/ops.py's
-// icrt_partial_geometry; the launcher refuses np < 1 and a geometry that
-// does not cover n or hold its tiles.
+// f64. blocks (the tiles of kRows coefficients), threads and smem are
+// kernels/icrt/ops.py's icrt_partial_geometry; the launcher refuses np < 1
+// and a geometry that does not cover n or hold its tiles, and runs
+// min(blocks, what fits the card) blocks, each looping over tiles.
 extern "C" int icrt_partial_launch(const uint32_t* r, const uint32_t* inv_p,
                                    const uint32_t* inv_p_sh,
                                    const uint32_t* primes,
@@ -493,39 +791,43 @@ extern "C" int icrt_partial_launch(const uint32_t* r, const uint32_t* inv_p,
                                    uint64_t* hi, double* qsum, int n, int np,
                                    int PL, int blocks, int threads, int smem,
                                    void* stream) {
-  const int np4 = (np + 3) & ~3;
-  const int words = np4 * kBM + std::max(np4 * kBN, 3 * kBM * kSumPitch);
-  if (np < 1 || threads != kThreads ||
-      static_cast<int64_t>(blocks) * kBM < n || (n > kBM && n % kBM) ||
-      smem < 4 * words)
+  const int np4 = (np + 3) & ~3, W = (PL + 3) & ~3;
+  const int64_t bytes = 16LL * kRows * PL + 8LL * np4 * (kTempPitch + 1) +
+                        4LL * np4 * (W + kRows + 3);
+  if (np < 1 || PL < 1 || n < 1 || threads != (2 * W + 31) / 32 * 32 ||
+      threads > kPartialThreads ||
+      static_cast<int64_t>(blocks) * kRows < n || smem < bytes)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t err = allow_smem(icrt_partial_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  icrt_partial_kernel<<<blocks, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      r, inv_p, inv_p_sh, primes, p_inv, pdivp, lo, hi, qsum, n, np, PL);
+  const int tiles = (n + kRows - 1) / kRows;
+  icrt_partial_kernel<<<resident_blocks(icrt_partial_kernel, threads, smem,
+                                        tiles),
+                        threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      r, inv_p, inv_p_sh, primes, p_inv, pdivp, lo, hi, qsum, n, np, PL,
+      tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 // lo, hi: (n, PL) int64 and qsum: (n,) f64, summed over every shard of
-// P's primes; P, P_half: (A,), A ≥ PL + 1; out: (n, out_limbs). blocks,
-// threads and smem are kernels/icrt/ops.py's icrt_finish_geometry.
+// P's primes; P, P_half: (A,), A ≥ PL + 1; out: (n, out_limbs). blocks
+// (one a tile of kFinRows coefficients), threads (a warp) and smem are
+// kernels/icrt/ops.py's icrt_finish_geometry.
 extern "C" int icrt_finish_launch(const uint64_t* lo, const uint64_t* hi,
                                   const double* qsum, const uint32_t* P,
                                   const uint32_t* P_half, uint32_t* out,
                                   int n, int PL, int A, int out_limbs,
                                   int blocks, int threads, int smem,
                                   void* stream) {
-  const int bytes = 2 * 8 * kBN * kPitch +
-                    4 * (std::min(out_limbs, A) * kPitch + 2 * kBN + kBM +
-                         std::min(out_limbs, A));
-  if (A < PL + 1 || threads != kThreads ||
-      static_cast<int64_t>(blocks) * kBM < n || (n > kBM && n % kBM) ||
-      smem < bytes)
+  const int L = std::min(out_limbs, A);
+  const int64_t bytes = 16LL * kFinRows * PL + 8 +
+                        4LL * (2 * A + L * (kFinRows + 1) + kFinRows + L);
+  if (A < PL + 1 || n < 1 || threads != 32 ||
+      static_cast<int64_t>(blocks) * kFinRows < n || smem < bytes)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t err = allow_smem(icrt_finish_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  icrt_finish_kernel<<<blocks, kThreads, smem,
+  icrt_finish_kernel<<<(n + kFinRows - 1) / kFinRows, 32, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       lo, hi, qsum, P, P_half, out, n, PL, A, out_limbs);
   return static_cast<int>(cudaGetLastError());

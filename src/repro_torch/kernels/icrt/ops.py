@@ -21,11 +21,14 @@ from repro_torch.kernels.icrt.ref import (
 
 __all__ = ["icrt_op", "icrt_geometry", "icrt_args", "icrt_partial_op",
            "icrt_partial_geometry", "icrt_finish_op", "icrt_finish_geometry",
-           "BLOCK", "SMEM_LIMIT"]
+           "BLOCK", "ROWS", "FINISH_ROWS", "SMEM_LIMIT"]
 
 BLOCK = 64          # coefficients per block (kBM of csrc/icrt.cu)
 _CHUNK = 32         # columns of P/p_j per chunk (kBN)
 _THREADS = 128      # threads per block (kThreads)
+ROWS = 32           # coefficients a tile of the partial (kRows)
+_PARTIAL_THREADS = 256  # the most threads a partial block has
+FINISH_ROWS = 16    # coefficients a finish block (kFinRows)
 
 
 def icrt_geometry(N: int, npn: int, A: int, out_limbs: int
@@ -94,33 +97,41 @@ def _tiles(N: int, what: str) -> int:
     return -(-N // BLOCK)
 
 
-def icrt_partial_geometry(N: int, npn: int) -> tuple[int, int, int]:
+def icrt_partial_geometry(N: int, npn: int, PL: int
+                          ) -> tuple[int, int, int]:
     """(blocks, threads, dynamic shared-memory bytes) of one partial launch
-    over N coefficients of a shard of `npn` ≥ 1 primes: the residue/temp
-    tile and the pdivp chunk that the three-word sums reuse, row by row at
-    a pitch of _CHUNK + 1."""
+    over N coefficients of a shard of `npn` ≥ 1 primes and PL columns:
+    blocks is the tiles of ROWS coefficients (the launch runs as many of
+    them as fit the card, each looping over tiles); a warp per four n8
+    tiles of the (ROWS, 2W) f64 sums, W = PL rounded up to 4; the shared
+    memory the lo and hi tile, temp and 1/p_j in f64, pdivp (W columns),
+    a tile of residues and the Shoup tables. Any N ≥ 1."""
     if npn < 1:
         raise ValueError("an empty shard launches nothing")
-    np4 = -(-npn // 4) * 4
-    words = np4 * BLOCK + max(np4 * _CHUNK, 3 * BLOCK * (_CHUNK + 1))
-    if 4 * words > SMEM_LIMIT:
-        raise ValueError(f"iCRT partial tiles of {npn} primes need "
-                         f"{4 * words} bytes of shared memory")
-    return _tiles(N, "iCRT partial"), _THREADS, 4 * words
+    np4, W = -(-npn // 4) * 4, -(-PL // 4) * 4
+    threads = 32 * -(-W // 16)
+    nbytes = (16 * ROWS * PL + 8 * np4 * (ROWS + 5)
+              + 4 * np4 * (W + ROWS + 3))
+    if threads > _PARTIAL_THREADS or nbytes > SMEM_LIMIT:
+        raise ValueError(f"iCRT partial tiles of {npn} primes and {PL} "
+                         f"columns need {threads} threads and {nbytes} "
+                         f"bytes of shared memory")
+    return -(-N // ROWS), threads, nbytes
 
 
-def icrt_finish_geometry(N: int, A: int, out_limbs: int
+def icrt_finish_geometry(N: int, A: int, out_limbs: int, PL: int
                          ) -> tuple[int, int, int]:
     """(blocks, threads, dynamic shared-memory bytes) of one finish launch:
-    _CHUNK columns of lo and hi (int64, pitch BLOCK + 1), the v tile of
-    min(out_limbs, A) limbs, the chunk's P and ⌊P/2⌋, and step 4's
-    scratch."""
+    a block of one warp a tile of FINISH_ROWS coefficients, with the
+    tile's rows of lo and hi (FINISH_ROWS × PL int64 each, one bulk load
+    apiece), its mbarrier, P and ⌊P/2⌋, the v tile of min(out_limbs, A)
+    limbs and step 4's scratch. Any N ≥ 1."""
     L = min(out_limbs, A)
-    nbytes = 16 * _CHUNK * (BLOCK + 1) + 4 * (L * (BLOCK + 1) + 2 * _CHUNK
-                                              + BLOCK + L)
+    nbytes = (16 * FINISH_ROWS * PL + 8
+              + 4 * (2 * A + L * (FINISH_ROWS + 1) + FINISH_ROWS + L))
     if nbytes > SMEM_LIMIT:
         raise ValueError(f"iCRT finish tiles need {nbytes} bytes")
-    return _tiles(N, "iCRT finish"), _THREADS, nbytes
+    return -(-N // FINISH_ROWS), 32, nbytes
 
 
 def _pad_cols(x, n: int):
@@ -128,18 +139,12 @@ def _pad_cols(x, n: int):
         [x, x.new_zeros((x.shape[0], n - x.shape[1]))], dim=1)
 
 
-def _pad_rows(x, n: int):
-    return x if x.shape[0] == n else torch.cat(
-        [x, x.new_zeros((n - x.shape[0], *x.shape[1:]))])
-
-
 def icrt_partial_op(r, t: dict):
     """A shard's (np_s, N) eval residues -> (lo, hi, qsum) of
     ``core.crt.icrt_partial``: int64 (N, PL), int64 (N, PL), f64 (N,).
     `t` holds the shard's rows of :func:`~repro_torch.kernels.icrt.ref.\
 icrt_inputs` (``pdivp`` keeps PL columns when the shard is empty). An
-    empty shard (np_s = 0) gives zeros and launches nothing. Any N: one
-    the launch cannot tile runs zero-padded to a multiple of BLOCK."""
+    empty shard (np_s = 0) gives zeros and launches nothing. Any N."""
     common.words32(r)
     npn, N = r.shape
     PL = t["pdivp"].shape[1]
@@ -151,49 +156,47 @@ icrt_inputs` (``pdivp`` keeps PL columns when the shard is empty). An
                                           device=r.device)
     if common.plain(r):
         return icrt_partial_ref(r, t)
-    n = common.padded(N, BLOCK)
-    r = _pad_cols(r, n)
-    geometry = icrt_partial_geometry(n, npn)
+    if r.data_ptr() % 16:   # a shard's rows of a width not a multiple of 4
+        r = r.clone()
+    geometry = icrt_partial_geometry(N, npn, PL)
     dev = r.device
-    lo = torch.empty((n, PL), dtype=torch.int64, device=dev)
-    hi = torch.empty((n, PL), dtype=torch.int64, device=dev)
-    qsum = torch.empty(n, dtype=torch.float64, device=dev)
+    lo = torch.empty((N, PL), dtype=torch.int64, device=dev)
+    hi = torch.empty((N, PL), dtype=torch.int64, device=dev)
+    qsum = torch.empty(N, dtype=torch.float64, device=dev)
     ptrs = [common.check(name, v, shape, dev, dtype) for name, v, shape, dtype
-            in (("r", r, (npn, n), torch.int32),
+            in (("r", r, (npn, N), torch.int32),
                 ("inv_P", t["inv_P"], (npn,), torch.int32),
                 ("inv_P_shoup", t["inv_P_shoup"], (npn,), torch.int32),
                 ("primes", t["primes"], (npn,), torch.int32),
                 ("p_inv_f64", t["p_inv_f64"], (npn,), torch.float64),
                 ("pdivp", t["pdivp"], (npn, PL), torch.int32),
-                ("lo", lo, (n, PL), torch.int64),
-                ("hi", hi, (n, PL), torch.int64),
-                ("qsum", qsum, (n,), torch.float64))]
-    common.launch("icrt_partial", "icrt_partial_launch", *ptrs, n, npn, PL,
+                ("lo", lo, (N, PL), torch.int64),
+                ("hi", hi, (N, PL), torch.int64),
+                ("qsum", qsum, (N,), torch.float64))]
+    common.launch("icrt_partial", "icrt_partial_launch", *ptrs, N, npn, PL,
                   *geometry)
-    return (lo, hi, qsum) if n == N else (lo[:N], hi[:N], qsum[:N])
+    return lo, hi, qsum
 
 
 def icrt_finish_op(lo, hi, qsum, t: dict, out_limbs: int):
     """(lo, hi, qsum) summed over every shard of P's primes -> (N,
     out_limbs) centered two's complement, the words of :func:`icrt_op`.
-    `t` holds ``P_limbs`` and ``P_half_limbs`` (A ≥ PL + 1 limbs). Any N,
-    padded as :func:`icrt_partial_op` pads."""
+    `t` holds ``P_limbs`` and ``P_half_limbs`` (A ≥ PL + 1 limbs). Any
+    N."""
     if common.plain(lo):
         return icrt_finish_ref(lo, hi, qsum, t, out_limbs)
     N, PL = lo.shape
     A = t["P_limbs"].shape[0]
-    n = common.padded(N, BLOCK)
-    lo, hi, qsum = (_pad_rows(x, n) for x in (lo, hi, qsum))
-    geometry = icrt_finish_geometry(n, A, out_limbs)
+    geometry = icrt_finish_geometry(N, A, out_limbs, PL)
     dev = lo.device
-    out = torch.empty((n, out_limbs), dtype=torch.int32, device=dev)
+    out = torch.empty((N, out_limbs), dtype=torch.int32, device=dev)
     ptrs = [common.check(name, v, shape, dev, dtype) for name, v, shape, dtype
-            in (("lo", lo, (n, PL), torch.int64),
-                ("hi", hi, (n, PL), torch.int64),
-                ("qsum", qsum, (n,), torch.float64),
+            in (("lo", lo, (N, PL), torch.int64),
+                ("hi", hi, (N, PL), torch.int64),
+                ("qsum", qsum, (N,), torch.float64),
                 ("P_limbs", t["P_limbs"], (A,), torch.int32),
                 ("P_half_limbs", t["P_half_limbs"], (A,), torch.int32),
-                ("out", out, (n, out_limbs), torch.int32))]
-    common.launch("icrt_finish", "icrt_finish_launch", *ptrs, n, PL, A,
+                ("out", out, (N, out_limbs), torch.int32))]
+    common.launch("icrt_finish", "icrt_finish_launch", *ptrs, N, PL, A,
                   out_limbs, *geometry)
-    return out if n == N else out[:N]
+    return out

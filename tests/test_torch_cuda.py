@@ -854,20 +854,27 @@ def _shard(t, s):
 
 @pytest.mark.parametrize("B", [1, 4])
 @pytest.mark.parametrize("region", [1, 2])
-def test_cuda_icrt_partial_and_finish_match_twins(dev, region, B):
+@pytest.mark.parametrize("shape", ["paper", "boot-4", "boot-10"])
+def test_cuda_icrt_partial_and_finish_match_twins(dev, shape, region, B):
     """icrt_partial equals its plain twin bit for bit (lo, hi and the f64
-    qsum) on every shard of paper_params()' np into 2 and 4 ranks (41/40,
-    61/61, 21/20/20/20, 31/31/30/30), on one prime and on an empty shard
-    (which launches nothing); the partials of each split, summed, finish
-    (icrt_finish == its twin) to the fused icrt_op's words, on random
-    residues and on every residue p − 1."""
+    qsum) on every shard of the region's np into 2 and 4 ranks
+    (paper_params(): 41/40, 61/61, 21/21/21/18, 31/31/31/29;
+    boot_params(logN=4) and boot_params(logN=10): 12/11, 17/17, 18/17 and
+    their quarters), on one prime and on an empty shard (which launches
+    nothing); the partials of each split, summed, finish (icrt_finish ==
+    its twin) to the fused icrt_op's words, on random residues and on
+    every residue p − 1. The bootstrap shapes run at B·N and at B·N + 17
+    coefficients too: below a tile of either kernel, a ragged last tile
+    and an odd count of words in the partial's last span."""
+    from repro_torch.boot import boot_params
     from repro_torch.core.context import device_icrt_tables, device_tables
     from repro_torch.dist.sharding import prime_rows
     from repro_torch.kernels.icrt.ops import icrt_finish_op, icrt_partial_op
     from repro_torch.kernels.icrt.ref import (
         icrt_finish_ref, icrt_partial_ref,
     )
-    p = paper_params()
+    p = paper_params() if shape == "paper" else \
+        boot_params(logN=int(shape.split("-")[1]))
     logq = p.logQ
     npn = p.np_region1(logq) if region == 1 else p.np_region2(logq)
     out_limbs = p.qlimbs(logq) if region == 1 else \
@@ -875,31 +882,33 @@ def test_cuda_icrt_partial_and_finish_match_twins(dev, region, B):
     g = device_tables(p, dev)
     t = icrt_inputs(device_icrt_tables(p, npn, dev), g)
     primes = g.primes.cpu().numpy().view(np.uint32)
-    n = B * p.N
-    for r in (_t(_residues(primes, npn, n, 40 + region + B), dev),
-              _t(np.repeat(primes[:npn, None] - 1, n, 1), dev)):
-        whole = icrt_op(r, t, out_limbs)
-        common.reset_launches()
-        for s in (slice(0, 1), slice(0, 0)):
-            got = icrt_partial_op(r[s], _shard(t, s))
-            want = icrt_partial_ref(r[s], _shard(t, s))
-            assert all(torch.equal(a, b) for a, b in zip(got, want))
-        assert common.LAUNCHES["icrt_partial"] == 1
-        for g_ in (2, 4):
-            parts = []
-            for k in range(g_):
-                s = prime_rows(npn, g_, k)
+    widths = (B * p.N,) if shape == "paper" else (B * p.N, B * p.N + 17)
+    for n in widths:
+        for r in (_t(_residues(primes, npn, n, 40 + region + B), dev),
+                  _t(np.repeat(primes[:npn, None] - 1, n, 1), dev)):
+            whole = icrt_op(r, t, out_limbs)
+            common.reset_launches()
+            for s in (slice(0, 1), slice(0, 0)):
                 got = icrt_partial_op(r[s], _shard(t, s))
                 want = icrt_partial_ref(r[s], _shard(t, s))
                 assert all(torch.equal(a, b) for a, b in zip(got, want))
-                parts.append(got)
-            summed = [sum(x[i] for x in parts) for i in range(3)]
-            fin = icrt_finish_op(*summed, t, out_limbs)
-            assert torch.equal(fin, icrt_finish_ref(*summed, t, out_limbs))
-            assert torch.equal(fin, whole)
-        torch.cuda.synchronize()
-        assert common.LAUNCHES["icrt_partial"] == 7
-        assert common.LAUNCHES["icrt_finish"] == 2
+            assert common.LAUNCHES["icrt_partial"] == 1
+            for g_ in (2, 4):
+                parts = []
+                for k in range(g_):
+                    s = prime_rows(npn, g_, k)
+                    got = icrt_partial_op(r[s], _shard(t, s))
+                    want = icrt_partial_ref(r[s], _shard(t, s))
+                    assert all(torch.equal(a, b) for a, b in zip(got, want))
+                    parts.append(got)
+                summed = [sum(x[i] for x in parts) for i in range(3)]
+                fin = icrt_finish_op(*summed, t, out_limbs)
+                assert torch.equal(fin, icrt_finish_ref(*summed, t,
+                                                        out_limbs))
+                assert torch.equal(fin, whole)
+            torch.cuda.synchronize()
+            assert common.LAUNCHES["icrt_partial"] == 7
+            assert common.LAUNCHES["icrt_finish"] == 2
 
 
 def _cuda_grid_step_rank(grid):

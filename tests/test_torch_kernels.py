@@ -46,6 +46,11 @@ from repro_torch.kernels.crt.ref import crt_ref
 from repro_torch.kernels.icrt.ops import (BLOCK, SMEM_LIMIT, icrt_geometry,
                                           icrt_op)
 from repro_torch.kernels.icrt.ref import icrt_inputs, icrt_ref
+from repro_torch.kernels.icrt.variants import SPLIT_VARIANTS as \
+    ICRT_SPLIT_VARIANTS
+from repro_torch.kernels.icrt.variants import VARIANTS as ICRT_VARIANTS
+from repro_torch.kernels.icrt.variants import \
+    variant_source as icrt_variant_source
 from repro_torch.kernels.modmul.ops import pointwise_mont_op
 from repro_torch.kernels.modmul.ref import pointwise_mont_ref
 from repro_torch.kernels.ntt.ops import (intt_op, ntt_args, ntt_geometry,
@@ -202,6 +207,74 @@ def test_icrt_launch_geometry_fits_hopper(params, B):
             assert N <= BLOCK or N % BLOCK == 0
         with pytest.raises(ValueError, match="multiple of"):
             icrt_geometry(max(N, BLOCK) + BLOCK // 2, npn, A, out_limbs)
+
+
+def _split_params(name):
+    from repro_torch.boot import boot_params
+    return paper_params() if name == "paper" else \
+        boot_params(logN=int(name.split("-")[1]))
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("params", ["paper", "boot-4", "boot-10"])
+def test_icrt_partial_geometry_covers_every_shard(params, B):
+    """icrt_partial_geometry for every shard of 1, 2 and 4 ranks of each
+    region's primes (paper_params(): np 81 and 122; boot_params(logN=4)
+    and boot_params(logN=10): 23/34 and 23/35): its tiles of ROWS cover
+    the B·N coefficients, a warp per 16 staged columns, the shared memory
+    within SMEM_LIMIT; an empty shard is refused (it launches
+    nothing)."""
+    from repro_torch.dist.sharding import prime_rows
+    from repro_torch.kernels.icrt.ops import ROWS, icrt_partial_geometry
+    p = _split_params(params)
+    q, N = p.logQ, B * p.N
+    for npn in (p.np_region1(q), p.np_region2(q)):
+        PL = build_icrt_tables(p, npn).pdivp.shape[1]
+        for ranks in (1, 2, 4):
+            for k in range(ranks):
+                s = prime_rows(npn, ranks, k)
+                blocks, threads, smem = icrt_partial_geometry(
+                    N, s.stop - s.start, PL)
+                assert blocks * ROWS >= N > (blocks - 1) * ROWS
+                assert threads % 32 == 0 and 2 * PL <= threads <= 256
+                assert 0 < smem <= SMEM_LIMIT
+        with pytest.raises(ValueError, match="empty shard"):
+            icrt_partial_geometry(N, 0, PL)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("params", ["paper", "boot-4", "boot-10"])
+def test_icrt_finish_geometry_covers_every_width(params, B):
+    """icrt_finish_geometry at each region's accumulator, output limbs
+    (and one limb past the accumulator) and PL: its blocks of one warp,
+    FINISH_ROWS coefficients each, cover B·N and B·N + 17 coefficients (a
+    ragged last tile), the shared memory within SMEM_LIMIT."""
+    from repro_torch.kernels.icrt.ops import (
+        FINISH_ROWS, icrt_finish_geometry,
+    )
+    p = _split_params(params)
+    q = p.logQ
+    for npn, out_limbs in ((p.np_region1(q), p.qlimbs(q)),
+                           (p.np_region2(q), p.limbs_for_bits(2 * q) + 1)):
+        tabs = build_icrt_tables(p, npn)
+        A, PL = tabs.accum_limbs, tabs.pdivp.shape[1]
+        for N in (B * p.N, B * p.N + 17):
+            for ol in (out_limbs, A + 1):
+                blocks, threads, smem = icrt_finish_geometry(N, A, ol, PL)
+                assert blocks * FINISH_ROWS >= N > (blocks - 1) * FINISH_ROWS
+                assert threads == 32
+                assert 0 < smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("name", sorted(ICRT_VARIANTS) +
+                         sorted(ICRT_SPLIT_VARIANTS))
+def test_icrt_variant_edits_apply_once(name):
+    """Every timed variant of csrc/icrt.cu (python -m
+    repro_torch.kernels.icrt.variants), of the fused kernel and of the
+    split pair, finds each piece of text it replaces exactly once."""
+    text = (common.CSRC / "icrt.cu").read_text()
+    edits = (ICRT_VARIANTS.get(name) or ICRT_SPLIT_VARIANTS[name])[-1]
+    assert icrt_variant_source(text, edits) != text
 
 
 @pytest.mark.parametrize("params,B", [
