@@ -1,0 +1,1 @@
+"""The harness of the benchmark of `repro_torch` (see ``bench/run.py``)."""
