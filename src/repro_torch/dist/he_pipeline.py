@@ -90,7 +90,6 @@ Differences from the reference:
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
@@ -116,6 +115,7 @@ from repro_torch.kernels.icrt.ops import (
 )
 from repro_torch.kernels.modmul.ops import pointwise_mont_op
 from repro_torch.kernels.ntt.ops import intt_op, ntt_op
+from repro_torch.obs.trace import device_range
 
 __all__ = [
     "HEStatic", "he_static", "region_tables", "evk_tables",
@@ -462,14 +462,18 @@ def make_stage_fns(device: str | torch.device = "cuda", *,
 
     `stage_timer` (a `repro_torch.obs.StageTimer`) fences and clocks
     every stage call in the paper's Fig. 3 taxonomy — crt, ntt (forward
-    and inverse), modmul (Montgomery and Shoup pointwise), icrt. The
-    stages compute the same words either way."""
+    and inverse), modmul (Montgomery and Shoup pointwise), icrt. Without
+    one, each stage call runs inside the profiler range
+    ``repro_torch/stage/<stage>`` while torch.profiler records (no fence;
+    one flag check otherwise). The stages compute the same words either
+    way."""
     dev = resolve_device(device)
     if icrt_strategy not in ("matmul", "acc3", "naive"):
         raise ValueError(f"unknown iCRT strategy {icrt_strategy!r}")
     if stage_timer is None:
         def timed(stage, thunk):
-            return thunk()
+            with device_range(stage, "stage"):
+                return thunk()
     else:
         timed = stage_timer.timed
     if grid is not None and grid.model > 1:
@@ -555,10 +559,11 @@ def _rs_ag(grid, x: torch.Tensor) -> torch.Tensor:
 
 
 def _region(sf: StageFns, name: str):
-    """Fig. 2 region scope when the bundle carries a StageTimer; free
-    (nullcontext) otherwise."""
+    """Fig. 2 region scope when the bundle carries a StageTimer; else the
+    profiler range ``repro_torch/stage/<name>`` (a no-op unless
+    torch.profiler records)."""
     return sf.timer.region(name) if sf.timer is not None \
-        else contextlib.nullcontext()
+        else device_range(name, "stage")
 
 
 def check_operands(st: HEStatic, device: torch.device,
@@ -618,7 +623,8 @@ def make_he_mul_step(st: HEStatic, device: str | torch.device = "cuda", *,
     ladder per stage; `use_kernels` routes every stage through the CUDA
     kernels, keeping the bitwise contract (β = 2^32 only: at β = 2^64 it
     raises ValueError); `stage_timer` books each stage and both regions
-    into a StageTimer (same words).
+    into a StageTimer (same words). The step runs inside the profiler
+    range ``repro_torch/step/mul`` while torch.profiler records.
 
     With `grid` of model size g > 1 the step is this rank's part: it takes
     the rank's batch rows and the rank's rows of the tables
@@ -637,33 +643,34 @@ def make_he_mul_step(st: HEStatic, device: str | torch.device = "cuda", *,
     keyswitch = make_keyswitch_step(st, sf)
 
     def step(t1, t2, ek, ax1, bx1, ax2, bx2):
-        check_operands(st, sf.device, ax1, bx1, ax2, bx2)
-        p1 = wide(t1["primes"])[:, None]
-        # ---- region 1: 4×(CRT→NTT), 3 pointwise, 3×(iNTT→iCRT) ----------
-        with _region(sf, "region1"):
-            ea1 = sf.to_eval(ax1, t1)
-            eb1 = sf.to_eval(bx1, t1)
-            ea2 = sf.to_eval(ax2, t1)
-            eb2 = sf.to_eval(bx2, t1)
+        with device_range("mul", "step"):
+            check_operands(st, sf.device, ax1, bx1, ax2, bx2)
+            p1 = wide(t1["primes"])[:, None]
+            # ---- region 1: 4×(CRT→NTT), 3 pointwise, 3×(iNTT→iCRT) ------
+            with _region(sf, "region1"):
+                ea1 = sf.to_eval(ax1, t1)
+                eb1 = sf.to_eval(bx1, t1)
+                ea2 = sf.to_eval(ax2, t1)
+                eb2 = sf.to_eval(bx2, t1)
 
-            d0_ev = sf.mont_mul(eb1, eb2, t1)
-            d2_ev = sf.mont_mul(ea1, ea2, t1)
-            d1_ev = sf.mont_mul(
-                narrow(modadd(wide(ea1), wide(eb1), p1), bits),
-                narrow(modadd(wide(ea2), wide(eb2), p1), bits), t1)
-            d1_ev = narrow(modsub(modsub(wide(d1_ev), wide(d0_ev), p1),
-                                  wide(d2_ev), p1), bits)
+                d0_ev = sf.mont_mul(eb1, eb2, t1)
+                d2_ev = sf.mont_mul(ea1, ea2, t1)
+                d1_ev = sf.mont_mul(
+                    narrow(modadd(wide(ea1), wide(eb1), p1), bits),
+                    narrow(modadd(wide(ea2), wide(eb2), p1), bits), t1)
+                d1_ev = narrow(modsub(modsub(wide(d1_ev), wide(d0_ev), p1),
+                                      wide(d2_ev), p1), bits)
 
-            d0 = sf.from_eval(d0_ev, t1, qlimbs)
-            d1 = sf.from_eval(d1_ev, t1, qlimbs)
-            d2 = bigint.mask_bits(sf.from_eval(d2_ev, t1, qlimbs), logq)
+                d0 = sf.from_eval(d0_ev, t1, qlimbs)
+                d1 = sf.from_eval(d1_ev, t1, qlimbs)
+                d2 = bigint.mask_bits(sf.from_eval(d2_ev, t1, qlimbs), logq)
 
-        # ---- region 2: key switching against the evk --------------------
-        ks_ax, ks_bx = keyswitch(t2, ek, d2)
+            # ---- region 2: key switching against the evk ----------------
+            ks_ax, ks_bx = keyswitch(t2, ek, d2)
 
-        # ---- combine ----------------------------------------------------
-        ax3 = bigint.mask_bits(bigint.add(d1, ks_ax), logq)
-        bx3 = bigint.mask_bits(bigint.add(d0, ks_bx), logq)
-        return ax3, bx3
+            # ---- combine ------------------------------------------------
+            ax3 = bigint.mask_bits(bigint.add(d1, ks_ax), logq)
+            bx3 = bigint.mask_bits(bigint.add(d0, ks_bx), logq)
+            return ax3, bx3
 
     return step

@@ -75,6 +75,7 @@ from repro_torch.dist.he_pipeline import (
     make_keyswitch_step, make_stage_fns,
 )
 from repro_torch.obs.stages import StageTimer
+from repro_torch.obs.trace import device_range
 
 if TYPE_CHECKING:
     from repro_torch.hserve.queue import Batch
@@ -126,14 +127,18 @@ def make_he_rotate_step(st: HEStatic, device: str | torch.device, k: int,
     """Build step(t2, rk, ax, bx) -> (ax', bx') for the automorphism σ_k.
 
     Serves both "rotate" (k = 5^r) and "conjugate" (k = 2N−1); rk is the
-    Galois key as a table dict (``he_pipeline.evk_tables``)."""
+    Galois key as a table dict (``he_pipeline.evk_tables``). The step runs
+    inside the profiler range ``repro_torch/step/<op>`` while
+    torch.profiler records."""
     sf = make_stage_fns(device, **knobs)
     keyswitch = make_keyswitch_step(st, sf)
     auto_b = _make_automorphism_b(st, k)
+    op = "conjugate" if k == conjugation_k(st.params) else "rotate"
 
     def step(t2, rk, ax, bx):
-        check_operands(st, sf.device, ax, bx)
-        return _galois_b(st, keyswitch, auto_b, t2, rk, ax, bx)
+        with device_range(op, "step"):
+            check_operands(st, sf.device, ax, bx)
+            return _galois_b(st, keyswitch, auto_b, t2, rk, ax, bx)
 
     return step
 
@@ -500,7 +505,13 @@ class OpEngine:
         HOST. On the synchronous run() path that is the step's wall; on
         the overlapped path it also includes any host time between
         dispatch and this wait (an upper bound on device time), so use
-        drain walls to quantify the overlap win."""
+        drain walls to quantify the overlap win.
+
+        The traced "device_wall" event is this wall: a host-clock span
+        from dispatch (after placement) to the event's completion, which
+        includes the host's time launching the step and any time the card
+        spends on earlier work, so it is at least the batch's own device
+        time, never a device measurement."""
         if inflight.event is not None:
             inflight.event.synchronize()
         wall = time.perf_counter() - inflight.t0

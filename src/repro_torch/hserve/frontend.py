@@ -74,7 +74,7 @@ from repro_torch.core.cipher import Ciphertext, EvalKey
 from repro_torch.core.params import HEParams
 from repro_torch.core.rns import kernels_on
 from repro_torch.hserve.queue import Batch
-from repro_torch.hserve.server import HEServer, relay_stop
+from repro_torch.hserve.server import HEServer, relay_stop, traced_entry
 from repro_torch.hserve.tables import PlainCache
 from repro_torch.hserve.transport import (
     InProcTransport, SubprocessTransport, WorkerDied, words,
@@ -700,6 +700,7 @@ class HEFrontend(HEServer):
 
     # ---- the serving loop (routed) ---------------------------------------
 
+    @traced_entry("poll", "server")
     def poll(self, flush: bool = False) -> List[Tuple[int, Ciphertext]]:
         """One frontend scheduling step: health-check workers, release
         at most one batch per the inherited flush policy, route it, and

@@ -84,7 +84,7 @@ from __future__ import annotations
 import json
 import math
 import time
-from functools import partial
+from functools import partial, wraps
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -109,6 +109,21 @@ __all__ = ["HEServer", "serve_follower", "leader_backend", "relay_init",
 
 
 _KEY_FIELDS = ("ax_ev", "ax_ev_shoup", "bx_ev", "bx_ev_shoup")
+
+
+def traced_entry(name: str, lane: str):
+    """Run a server method inside a live cat="server" span `name` of the
+    server's tracer (so a profiler range too, while torch.profiler
+    records); with no tracer, just run it."""
+    def wrap(fn):
+        @wraps(fn)
+        def entry(self, *args, **kwargs):
+            if self._tracer is None:
+                return fn(self, *args, **kwargs)
+            with self._tracer.span(name, cat="server", lane=lane):
+                return fn(self, *args, **kwargs)
+        return entry
+    return wrap
 
 
 # The serving leader's messages to the other ranks of its model group: a
@@ -472,6 +487,7 @@ class HEServer:
 
     # ---- request intake --------------------------------------------------
 
+    @traced_entry("submit", "requests")
     def submit(self, op: str, cts, r: int = 0, dlogp: int = 0,
                logq2: int = 0, pt=None, pt_logp: int = 0,
                pt_hash: Optional[str] = None,
@@ -480,8 +496,9 @@ class HEServer:
 
         Lifecycle trace: a traced submit lands two instants — "submit"
         (intake, before validation) and "enqueue" (accepted into its
-        bucket) — on the "requests" lane; the untraced path takes no
-        clock reads and allocates nothing.
+        bucket) — on the "requests" lane, inside a "submit" span (cat
+        "server": intake to enqueue); the untraced path takes no clock
+        reads and records nothing.
 
         Key availability is checked HERE, not at execution: a request
         the engine cannot serve must never enter the queue (it would
@@ -752,6 +769,7 @@ class HEServer:
             return self.batch
         return max(1, min(self.batch, math.ceil(rate * self.max_age_s)))
 
+    @traced_entry("poll", "server")
     def poll(self, flush: bool = False) -> List[Tuple[int, Ciphertext]]:
         """Release + run at most one batch per the flush policy (full →
         age → drain); returns completed (rid, Ciphertext) pairs (empty
@@ -764,7 +782,8 @@ class HEServer:
         lookahead horizon is deferred so the sibling co-batches — but
         SOME non-empty bucket is always released (the scheduler's
         progress guarantee), so a flush-poll on a non-empty queue can
-        never return without running work.
+        never return without running work. Traced as a "poll" span on
+        the "server" lane.
         """
         self._c_polls.inc()
         self._g_depth.set(self.queue.depth)
@@ -852,8 +871,11 @@ class HEServer:
         entries (a host build and an upload) and the contiguous CRT
         columns are the work; hiding it behind the running batch is the
         prefetch win."""
-        if not (self.schedule and self.prefetch):
-            return
+        if self.schedule and self.prefetch:
+            self._prefetch(b)
+
+    @traced_entry("prefetch", "server")
+    def _prefetch(self, b: Batch) -> None:
         tags = [t for t in (self._node_of_rid.get(r.rid)
                             for r in b.requests) if t is not None]
         levels = self.scheduler.next_levels(tags)

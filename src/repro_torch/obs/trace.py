@@ -1,4 +1,5 @@
-"""Span tracing with Chrome trace-event export (Perfetto-loadable).
+"""Span tracing with Chrome trace-event export (Perfetto-loadable), and
+the port's profiler ranges.
 
 One :class:`Tracer` instance is threaded through the serving stack
 (HEServer → OpEngine → TableCache → StageTimer) and records everything
@@ -19,17 +20,52 @@ The DISABLED tracer is free: `span()`/`event()`/`instant()` return a
 shared no-op singleton and append nothing, so `serve --he` without
 `--trace` allocates zero objects per request on the hot path.
 
-This is the JAX package's ``obs/trace.py``, ported unchanged: a port
-trace has the same Chrome trace-event JSON as the reference's.
+Profiler ranges. The tracer's clock (`time.perf_counter`) is not
+torch.profiler's: the profiler stamps its host and device events on the
+epoch clock (`time.time_ns()`), and nothing relates the two. So the
+program names its work on the profiler's own timeline as well:
+:func:`device_range` opens a range ``repro_torch/<cat>/<name>`` while a
+profiler records and is a shared no-op otherwise (one flag check), and
+every live :meth:`Tracer.span` opens one for its lifetime, so a traced
+server's spans lie on the device trace's clock beside the kernels they
+launch. The dist pipeline's stages and steps open ranges of their own
+(``repro_torch/stage/<stage>``, ``repro_torch/step/<op>``). A range is
+an operator-scope record function: it adds a host event and no device
+event (a user-scope `torch.profiler.record_function` range would add a
+GPU annotation on the card, which counts as a device event).
+
+Apart from the ranges this is the JAX package's ``obs/trace.py``, ported
+unchanged: a port trace has the same Chrome trace-event JSON as the
+reference's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from typing import Callable, Dict, List, Optional
 
-__all__ = ["Span", "Tracer"]
+import torch
+
+__all__ = ["RANGE_PREFIX", "Span", "Tracer", "device_range"]
+
+# every profiler range the program opens is named RANGE_PREFIX + cat/name
+RANGE_PREFIX = "repro_torch/"
+_NO_RANGE = contextlib.nullcontext()
+# the range factory: a record function of operator scope
+_RANGE = torch._C._profiler._RecordFunctionFast
+
+
+def device_range(name: str, cat: str):
+    """A profiler range ``repro_torch/<cat>/<name>`` while torch.profiler
+    records, else a shared no-op context: off, it costs one flag check.
+    The range has operator scope, so it adds a host event and no device
+    event (see the module docstring)."""
+    if torch._C._autograd._profiler_enabled():
+        return _RANGE(f"{RANGE_PREFIX}{cat}/{name}")
+    return _NO_RANGE
+
 
 # Metadata records reuse the full event schema (ts/dur keys and all) so
 # every element of traceEvents validates against the same OBS_SCHEMA.
@@ -39,12 +75,16 @@ _EVENT_KEYS = ("pid", "tid", "ts", "dur", "name", "cat", "ph")
 class Span:
     """An open span: entered at construction time, closed on `end()` /
     context exit. The no-op singleton (`tracer disabled`) shares this
-    class with `_live=False` so the hot path has no isinstance checks."""
+    class with `_live=False` so the hot path has no isinstance checks.
+    A live span holds its profiler range (`device_range`) open until it
+    ends."""
 
-    __slots__ = ("_tracer", "name", "cat", "lane", "args", "_t0", "_live")
+    __slots__ = ("_tracer", "name", "cat", "lane", "args", "_t0", "_live",
+                 "_range")
 
     def __init__(self, tracer: Optional["Tracer"], name: str, cat: str,
-                 lane: str, args: Optional[dict], t0: float, live: bool):
+                 lane: str, args: Optional[dict], t0: float, live: bool,
+                 rng=None):
         self._tracer = tracer
         self.name = name
         self.cat = cat
@@ -52,11 +92,13 @@ class Span:
         self.args = args
         self._t0 = t0
         self._live = live
+        self._range = rng
 
     def end(self, **extra_args) -> None:
         if not self._live:
             return
         self._live = False
+        self._range.__exit__(None, None, None)
         tr = self._tracer
         args = self.args
         if extra_args:
@@ -138,10 +180,15 @@ class Tracer:
 
     def span(self, name: str, *, cat: str, lane: str,
              args: Optional[dict] = None) -> Span:
-        """Open a span at now(); closes (and records) on end()/exit."""
+        """Open a span at now(); closes (and records) on end()/exit.
+        While torch.profiler records, the span is also the profiler range
+        ``repro_torch/<cat>/<name>``."""
         if not self.enabled:
             return _NULL_SPAN
-        return Span(self, name, cat, lane, args, self.clock(), live=True)
+        rng = device_range(name, cat)
+        rng.__enter__()
+        return Span(self, name, cat, lane, args, self.clock(), live=True,
+                    rng=rng)
 
     def instant(self, name: str, *, cat: str, lane: str,
                 args: Optional[dict] = None) -> None:

@@ -38,6 +38,8 @@ from repro_torch.core.keys import keygen
 from repro_torch.core.rotate import rot_keygen
 from repro_torch.dist import he_pipeline as hp
 from repro_torch.hserve import HEServer, ServeMetrics
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.report import analyze, format_report, load_events
 from repro_torch.obs.trace import _NULL_SPAN
 
@@ -360,3 +362,115 @@ def test_serve_he_smoke_on_the_cpu(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             main(["--batch", "2"])
+
+
+# --------------------------------------------------------------------------
+# profiler ranges: none without a profiler; under one, the stages inside
+# their step and the server's spans
+# --------------------------------------------------------------------------
+
+def _mul_step_args(pk, evk):
+    rng = np.random.default_rng(8)
+    cts = [H.encrypt_message(rng.random(4) + 0j, pk, PT, seed=s)
+           for s in range(4)]
+    st = hp.he_static(PT, PT.logQ)
+    t1, t2, ek = hp.runtime_tables(make_context(PT, PT.logQ, "cpu"), evk)
+    a = [torch.stack([getattr(c, f) for c in cts[i::2]])
+         for i in (0, 1) for f in ("ax", "bx")]
+    return st, (t1, t2, ek, a[0], a[1], a[2], a[3])
+
+
+def _ranges(prof):
+    """The program's ranges of a CPU profile: (name, start, end)."""
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if e.name.startswith(obs.RANGE_PREFIX)]
+
+
+def _inside(r, outer):
+    return any(o[1] <= r[1] and r[2] <= o[2] for o in outer)
+
+
+def test_no_range_is_entered_without_a_profiler(keys, monkeypatch):
+    """With no profiler recording, no range is made: not by a step's
+    stages, nor by a traced server's spans; the tracer's JSON stays the
+    reference's, with a profiler recording or not."""
+    _, pk, evk, rks = keys
+    made = []
+    real = obs_trace._RANGE
+    monkeypatch.setattr(obs_trace, "_RANGE",
+                        lambda name: made.append(name) or real(name))
+    st, args = _mul_step_args(pk, evk)
+    hp.make_he_mul_step(st, "cpu", use_kernels=True)(*args)
+    srv = HEServer(PT, evk, rks, device="cpu", batch=2, tracer=obs.Tracer())
+    _drive(srv, _stream(pk)[:2], lambda c: c, None)
+    assert made == []
+    want = json.dumps(_feed_tracer(jobs), sort_keys=True)
+    assert json.dumps(_feed_tracer(obs), sort_keys=True) == want
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = _feed_tracer(obs)
+    assert json.dumps(got, sort_keys=True) == want
+    assert made == ["repro_torch/test/outer", "repro_torch/test/inner"]
+
+
+def test_stage_ranges_of_a_profiled_step_equal_the_stage_timer(keys):
+    """Under a CPU profiler an HE Mul step opens every stage's range
+    inside its region's and ``step/mul``, as often as a StageTimer books
+    the stage, and gives the words of the step run without a profiler."""
+    _, pk, evk, _ = keys
+    st, args = _mul_step_args(pk, evk)
+    step = hp.make_he_mul_step(st, "cpu", use_kernels=True)
+    plain = step(*args)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = step(*args)
+    assert all(torch.equal(x, y) for x, y in zip(out, plain))
+    timer = obs.StageTimer()
+    with timer.op("mul"):
+        hp.make_he_mul_step(st, "cpu", use_kernels=True,
+                            stage_timer=timer)(*args)
+    rs = _ranges(prof)
+    names = [r[0].removeprefix("repro_torch/") for r in rs]
+    assert {s: names.count(f"stage/{s}") for s in obs.STAGES} == \
+        timer.summary()["calls"]["mul"]
+    assert names.count("step/mul") == 1
+    assert names.count("stage/region1") == names.count("stage/region2") == 1
+    steps = [r for r in rs if r[0].endswith("step/mul")]
+    regions = [r for r in rs if "/region" in r[0]]
+    assert all(_inside(r, regions) for r in rs
+               if r[0].split("/")[-1] in obs.STAGES)
+    assert all(_inside(r, steps) for r in rs if r not in steps)
+
+
+def test_traced_serving_opens_the_server_ranges(keys, profiled):
+    """Under a CPU profiler a traced server's poll, submit, batch_assemble
+    and dispatch spans are ranges (each dispatch inside a poll, each step
+    inside a dispatch), the tracer's events hold the whole lifecycle, and
+    the words are plain serving's."""
+    _, pk, evk, rks = keys
+    tr = obs.Tracer()
+    srv = HEServer(PT, evk, rks, device="cpu", batch=2, tracer=tr)
+    pt = H.encode_plain(np.full(4, 0.5), PT, PT.logQ, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        outs = _drive(srv, _stream(pk), lambda c: c, pt)
+    for a, b in zip(outs, profiled["outs0"]):
+        assert torch.equal(a.ax, b.ax) and torch.equal(a.bx, b.bx)
+    rs = _ranges(prof)
+    by = {n: [r for r in rs if r[0] == "repro_torch/" + n]
+          for n in ("server/poll", "server/submit",
+                    "lifecycle/batch_assemble", "lifecycle/dispatch")}
+    assert all(by.values()), {n: len(v) for n, v in by.items()}
+    assert len(by["server/submit"]) == 5
+    xs = [e for e in tr.events if e["ph"] == "X"]
+    assert LIFECYCLE <= {e["name"] for e in xs}
+    for n, v in by.items():           # one range a tracer span
+        cat, name = n.split("/")
+        assert len(v) == sum(1 for e in xs
+                             if (e["cat"], e["name"]) == (cat, name)), n
+    assert all(_inside(r, by["server/poll"])
+               for r in by["lifecycle/dispatch"])
+    steps = [r for r in rs if "/step/" in r[0]]
+    assert {r[0] for r in steps} == {"repro_torch/step/mul",
+                                     "repro_torch/step/rotate"}
+    assert all(_inside(r, by["lifecycle/dispatch"]
+                       + [w for w in rs if w[0].endswith("warm_compile")])
+               for r in steps)
