@@ -17,7 +17,12 @@ Phases; any failure exits non-zero and prints no result:
    timed so too at the shapes of the levels the circuit path descends to
    (logq 1170, 1140, 1110: CRT K 37–35, np₁ 79–75, np₂ 121–119, iCRT
    out 76–74) and of Galois keygen (CRT K 75 into np 81 and 122, iCRT np
-   81 → 75), at B = 1 and 4. iCRT is also held bit for bit
+   81 → 75), at B = 1 and 4. The carry kernels (``csrc/carry.cu``), which
+   only the batched steps launch, are held and timed so at a step's rows
+   at B = 4 and 16 (CARRY_BATCHES): the ÷Q shift of 76 limbs to 38 and the
+   combine's add and mask at 38 limbs, against ``core.bigint`` run on the
+   card; their bound counts the limbs the function reads (the shift's from
+   its rounding bit up) and writes. iCRT is also held bit for bit
    against its plain version, at each of its shapes, on the inputs that
    decide its carries, its ±1 ladder and its center-lift (every residue
    p_j − 1, every residue 0, and X = ⌊P/2⌋, ⌊P/2⌋ + 1, P − 1, 1); CRT and
@@ -351,17 +356,27 @@ HE_MUL_SHAPE_LAUNCHES = {"modmul": (3,), "ntt": (4, 1), "intt": (3, 2),
                          "crt": (4, 1), "icrt": (3, 2)}
 HE_MUL_LAUNCHES = {k: sum(v) for k, v in HE_MUL_SHAPE_LAUNCHES.items()}
 BATCH = 4                       # ciphertext pairs per batched step
+# the carry kernels a batched step launches, which the single ops leave to
+# core.bigint: the ÷Q shift of the key switch's two polynomials, and the
+# combine's add and mask of each output polynomial (a Galois step combines
+# bx only)
+STEP_CARRY = {"carry_shift": 2, "carry_add": 2}
+GALOIS_STEP_CARRY = {"carry_shift": 2, "carry_add": 1}
+# the batches of phase 2's carry rows: the batched step's and the
+# benchmark's B 16 step
+CARRY_BATCHES = (BATCH, 16)
 # rungs of the paper's ladder the batched step runs through the kernels:
 # keywords of make_he_mul_step, and the launches of one step (Fig. 2:
-# 5 CRT, 5 NTT, 5 iNTT, 5 iCRT, 3 Montgomery products)
+# 5 CRT, 5 NTT, 5 iNTT, 5 iCRT, 3 Montgomery products; the carries)
 RUNGS = {
     "default": ({}, {"crt": 5, "ntt": 5, "intt": 5, "icrt": 5,
-                     "modmul": 3}),
+                     "modmul": 3, **STEP_CARRY}),
     "mod2+modified": ({"crt_strategy": "mod2", "modified_shoup": True},
                       {"crt_mod2": 5, "ntt_modified": 5, "intt_modified": 5,
-                       "icrt": 5, "modmul": 3}),
+                       "icrt": 5, "modmul": 3, **STEP_CARRY}),
     "mod4": ({"crt_strategy": "mod4"}, {"crt_mod4": 5, "ntt": 5, "intt": 5,
-                                        "icrt": 5, "modmul": 3}),
+                                        "icrt": 5, "modmul": 3,
+                                        **STEP_CARRY}),
 }
 # Phase 6, the circuit path: the rotation keys it makes (circuit B's
 # rotate(1) and slot sum over AFFINE_SLOTS slots, the slot-sum step), and
@@ -369,7 +384,9 @@ RUNGS = {
 # op is region 2 alone (core/rotate.py _apply_galois: 1 CRT→NTT, 2
 # iNTT→iCRT), he_mul_plain region 1 alone (core/heaan.py: 3 CRT→NTT, 2
 # Montgomery products, 2 iNTT→iCRT); the limb ops launch nothing. A
-# batched step launches what one op does: the batch folds into each launch.
+# batched step launches what one op does (the batch folds into each
+# launch) and, where it key-switches, the carry kernels (GALOIS_STEP_CARRY
+# a Galois op; a slot sum's round adds its two accumulations).
 CIRCUIT_ROTATIONS = (1, 2, 4, 8, 16, 32)
 AFFINE_SLOTS = 64
 GALOIS_LAUNCHES = {"crt": 1, "ntt": 1, "intt": 2, "icrt": 2}
@@ -387,7 +404,8 @@ SERVE_LEVELS = 3
 SERVE_REQUESTS = 24
 SERVE_ROTATIONS, SERVE_CONJUGATIONS = 4, 2
 SERVE_PLAIN_FRAC = 0.25
-SERVE_KERNELS = ("modmul", "ntt", "intt", "crt", "icrt")
+SERVE_KERNELS = ("modmul", "ntt", "intt", "crt", "icrt", "carry_shift",
+                 "carry_add")
 # Phase 8, the multi-host tier: workers a frontend runs, and the traced
 # client expressions
 MULTIHOST_WORKERS = 2
@@ -476,6 +494,9 @@ SOURCES = {
                      "src/repro/kernels/icrt/icrt.py:98"),
     "icrt_finish": ("kernels/csrc/icrt.cu",
                     "src/repro/kernels/icrt/icrt.py:98"),
+    # no Pallas kernel: the JAX package leaves these chains to XLA
+    "carry_shift": ("kernels/csrc/carry.cu", None),
+    "carry_add": ("kernels/csrc/carry.cu", None),
 }
 
 
@@ -619,6 +640,40 @@ def keygen_kernel_cases(torch, np, params, dev):
                         crt=((q2, np_kk), (q2, params.np_region2(
                             params.logQ))),
                         icrt=((np_kk, q2),), variants=False)
+
+
+def carry_cases(torch, params, dev):
+    """kernel_cases for the carry kernels at the top level: the ÷Q shift
+    (ks_limbs → qlimbs) and the combine's add and mask (qlimbs, mask logQ)
+    at each of CARRY_BATCHES' B·N rows. The shift's bytes are the limbs
+    from its rounding bit's up and its output; the add's its two inputs'
+    limbs below the mask and its output."""
+    from repro_torch.kernels.carry.ops import add_mask_op, shift_round_op
+    from repro_torch.kernels.carry.ref import add_mask_ref, shift_round_ref
+
+    K, _, _, ks = level_shapes(params, params.logQ)
+    s = bits = params.logQ
+    g = torch.Generator(device=dev).manual_seed(2025)
+    cases = []
+    for B in CARRY_BATCHES:
+        n = B * params.N
+
+        def words(L):
+            return torch.randint(-2**31, 2**31 - 1, (n, L), device=dev,
+                                 dtype=torch.int32, generator=g)
+
+        x, a, b = words(ks), words(K), words(K)
+        c0 = (s - 1) // 32
+        cases.append(("carry_shift", f"L={ks}->{K} B={B}",
+                      lambda x=x: shift_round_op(x, s, K),
+                      lambda x=x: shift_round_ref(x, s, K),
+                      4 * n * ((ks - c0) + K), 0, None))
+        C = -(-bits // 32)
+        cases.append(("carry_add", f"L={K} B={B}",
+                      lambda a=a, b=b: add_mask_op(a, b, bits),
+                      lambda a=a, b=b: add_mask_ref(a, b, bits),
+                      4 * n * (2 * C + K), 0, None))
+    return cases
 
 
 def _shape_cases(torch, np, params, dev, modmul, ntt, crt, icrt,
@@ -846,6 +901,7 @@ def check_kernels(torch, np, params, dev, flush) -> dict:
                                                   logq, variants=False)]
     cases += [("keygen", c) for c in keygen_kernel_cases(torch, np, params,
                                                          dev)]
+    cases += [(params.logQ, c) for c in carry_cases(torch, params, dev)]
     for level, (name, shape, kern, plain, nbytes, nmul, floor) in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
@@ -855,7 +911,7 @@ def check_kernels(torch, np, params, dev, flush) -> dict:
                 f"(max abs err {err})")
         b_ms, b_by = bound_ms(nbytes, nmul)
         row = {"shape": shape, "level": level,
-               "batch": BATCH if "B=" in shape else 1,
+               "batch": int(shape.split("B=")[1]) if "B=" in shape else 1,
                "max_abs_err": err,
                "ms": time_ms(torch, kern, 20, flush),
                "plain_ms": time_ms(torch, plain, 3, flush),
@@ -1210,22 +1266,23 @@ def drive_circuit_path(torch, np, params, dev, common, sk, pk, evk
                                          **on),
                    (t2, tk[1], ax, bx),
                    lambda i: R.he_rotate(cts[i], 1, rks[1], params),
-                   GALOIS_LAUNCHES),
+                   summed(GALOIS_LAUNCHES, GALOIS_STEP_CARRY)),
         "rotate mod2+modified": (
             E.make_he_rotate_step(st, dev, R.rotation_k(params, 1), **mod2),
             (t2, tk[1], ax, bx),
             lambda i: R.he_rotate(cts[i], 1, rks[1], params),
             {"crt_mod2": 1, "ntt_modified": 1, "intt_modified": 2,
-             "icrt": 2}),
+             "icrt": 2, **GALOIS_STEP_CARRY}),
         "conjugate": (E.make_he_rotate_step(st, dev, R.conjugation_k(params),
                                             **on),
                       (t2, tk["conj"], ax, bx),
                       lambda i: R.he_conjugate(cts[i], ck, params),
-                      GALOIS_LAUNCHES),
+                      summed(GALOIS_LAUNCHES, GALOIS_STEP_CARRY)),
         "slot_sum": (E.make_slot_sum_step(st, dev, AFFINE_SLOTS, **on),
                      (t2, tuple(tk[r] for r in ss), ax, bx),
                      lambda i: slot_sum(cts[i]),
-                     scaled(GALOIS_LAUNCHES, len(ss))),
+                     scaled(summed(GALOIS_LAUNCHES, GALOIS_STEP_CARRY,
+                                   {"carry_add": 2}), len(ss))),
         "rescale": (E.make_rescale_step(st, dev, logp, **on), (ax, bx),
                     lambda i: H.rescale(cts[i], params), {}),
         "mod_down": (E.make_mod_down_step(st, dev, logq1, **on), (ax, bx),
@@ -2681,7 +2738,9 @@ def drive_grid_step(torch, np, params, dev, flush, pk, evk) -> dict:
             require(dev.type != "cuda" or (
                 case["launches"].get("icrt_partial", 0) > 0
                 and case["launches"].get("icrt_finish", 0) > 0
-                and "icrt" not in case["launches"]),
+                and "icrt" not in case["launches"]
+                and all(case["launches"].get(k, 0) == v
+                        for k, v in STEP_CARRY.items())),
                     f"2-rank step {what}: launches {case['launches']}")
         if res["rank"] == 0:
             launches = res["launches"]
@@ -2951,9 +3010,10 @@ def drive_finish_path(torch, np, params, dev, common, evk, keys, stream,
         require(dev.type != "cuda" or (
             a["launches"].get("icrt_partial", 0) > 0
             and a["launches"].get("icrt_finish", 0) > 0
-            and "icrt" not in a["launches"]),
-                f"12a: the split kernels did not launch inside the worker "
-                f"group: {a['launches']}")
+            and "icrt" not in a["launches"]
+            and all(a["launches"].get(k, 0) > 0 for k in STEP_CARRY)),
+                f"12a: the split or carry kernels did not launch inside "
+                f"the worker group: {a['launches']}")
         w = fe.workers[0]
         a["batches"] = len(w.frame_log)
         a["busy_s"] = w.busy_s
@@ -3131,7 +3191,9 @@ def drive_finish_path(torch, np, params, dev, common, evk, keys, stream,
                     f"{sch['total_bytes']} against {exp}")
         require(dev.type != "cuda" or (
             res["acc3"]["launches"].get("icrt_partial", 0) > 0
-            and "icrt" not in res["acc3"]["launches"]),
+            and "icrt" not in res["acc3"]["launches"]
+            and all(res["acc3"]["launches"].get(k, 0) == v
+                    for k, v in STEP_CARRY.items())),
                 f"12d: rank {res['rank']} launches {res['acc3']['launches']}")
         require(not res["beta64"]["launches"],
                 f"12b: the β=2^64 grid step launched "

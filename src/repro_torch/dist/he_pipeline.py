@@ -9,8 +9,9 @@ JAX package's ``dist/he_pipeline.py``:
     :func:`runtime_tables`), so one step serves any batch;
   - the strategy keywords select the paper's optimization ladder per stage
     (CRT strategy, iCRT strategy, modified Shoup), with the reference's
-    names and defaults; ``use_kernels=True`` routes CRT, NTT, iNTT, iCRT
-    and the Montgomery product through the CUDA kernels
+    names and defaults; ``use_kernels=True`` routes CRT, NTT, iNTT, iCRT,
+    the Montgomery product and the BigInt carry chains (the ÷Q shift, the
+    combine's add and mask) through the CUDA kernels
     (:mod:`repro_torch.kernels`), whose CRT strategies are acc3, mod2 and
     mod4 and whose transforms honour ``modified_shoup``.
 
@@ -107,6 +108,8 @@ from repro_torch.core.rns import kernels_on
 from repro_torch.core.wordops import (
     modadd, modsub, mont_modmul, narrow, wide, word_bits,
 )
+from repro_torch.kernels.carry.ops import add_mask_op, shift_round_op
+from repro_torch.kernels.carry.ref import add_mask_ref, shift_round_ref
 from repro_torch.kernels.crt.ops import crt_op
 from repro_torch.dist import comm
 from repro_torch.dist.sharding import he_eval_sharding, he_limb_sharding
@@ -426,14 +429,19 @@ class StageFns:
 
     `to_eval`/`from_eval` are the paper's CRT→NTT and iNTT→iCRT chains
     over (B, ·, ·) batches; `mont_mul` is the region-1 pointwise product,
-    `shoup_mul` the region-2 product against a key; `timer` the Fig. 3
-    StageTimer the stages book into (None when not profiling).
+    `shoup_mul` the region-2 product against a key; `shift_round(x, s,
+    out_limbs)` is the ÷Q rounding shift (``bigint.shift_right_round``)
+    and `add_mask(a, b, bits)` the limb add mod 2^bits of a combine;
+    `timer` the Fig. 3 StageTimer the stages book into (None when not
+    profiling).
     """
 
     to_eval: Callable[[torch.Tensor, Dict], torch.Tensor]
     from_eval: Callable[[torch.Tensor, Dict, int], torch.Tensor]
     mont_mul: Callable[[torch.Tensor, torch.Tensor, Dict], torch.Tensor]
     shoup_mul: Callable[..., torch.Tensor]
+    shift_round: Callable[[torch.Tensor, int, int], torch.Tensor]
+    add_mask: Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
     device: torch.device
     timer: Optional[object] = None
     grid: Optional[object] = None     # a HostGrid of model size > 1
@@ -449,8 +457,9 @@ def make_stage_fns(device: str | torch.device = "cuda", *,
                    stage_timer=None) -> StageFns:
     """Bind the strategy knobs into a reusable stage bundle on `device`.
 
-    `use_kernels` routes CRT/NTT/iNTT/iCRT/pointwise through the CUDA
-    kernels (their plain versions for CPU tensors).
+    `use_kernels` routes CRT/NTT/iNTT/iCRT/pointwise and the BigInt
+    carry chains (the ÷Q shift, the combines' add and mask) through the
+    CUDA kernels (their plain versions for CPU tensors).
 
     `grid` (a HostGrid on `device`) of model size g > 1 makes the bundle
     one rank's part: the stages take the rank's prime rows, and iCRT sums
@@ -540,8 +549,18 @@ def make_stage_fns(device: str | torch.device = "cuda", *,
         return timed("modmul", lambda: pointwise_shoup_scale(
             e, w, w_shoup, primes, modified=modified_shoup))
 
+    if use_kernels:
+        def shift_round(x, s, out_limbs):
+            return shift_round_op(x.contiguous(), s, out_limbs)
+
+        def add_mask(a, b, bits):
+            return add_mask_op(a.contiguous(), b.contiguous(), bits)
+    else:
+        shift_round, add_mask = shift_round_ref, add_mask_ref
+
     return StageFns(to_eval=to_eval, from_eval=from_eval, mont_mul=mont_mul,
-                    shoup_mul=shoup_mul, device=dev, timer=stage_timer,
+                    shoup_mul=shoup_mul, shift_round=shift_round,
+                    add_mask=add_mask, device=dev, timer=stage_timer,
                     grid=grid)
 
 
@@ -600,9 +619,8 @@ def make_keyswitch_step(st: HEStatic, sf: StageFns):
             for key in ("ax_ev", "bx_ev"):
                 prod = sf.shoup_mul(e2, ek[key][:n2],
                                     ek[key + "_shoup"][:n2], p2)
-                out.append(bigint.shift_right_round(
-                    sf.from_eval(prod, t2, ks_limbs), logQ,
-                    out_limbs=qlimbs))
+                out.append(sf.shift_round(
+                    sf.from_eval(prod, t2, ks_limbs), logQ, qlimbs))
         return out[0], out[1]
 
     return ks
@@ -669,8 +687,8 @@ def make_he_mul_step(st: HEStatic, device: str | torch.device = "cuda", *,
             ks_ax, ks_bx = keyswitch(t2, ek, d2)
 
             # ---- combine ------------------------------------------------
-            ax3 = bigint.mask_bits(bigint.add(d1, ks_ax), logq)
-            bx3 = bigint.mask_bits(bigint.add(d0, ks_bx), logq)
+            ax3 = sf.add_mask(d1, ks_ax, logq)
+            bx3 = sf.add_mask(d0, ks_bx, logq)
             return ax3, bx3
 
     return step

@@ -114,12 +114,12 @@ def _make_automorphism_b(st: HEStatic, k: int) -> Callable:
     return auto_b
 
 
-def _galois_b(st: HEStatic, keyswitch, auto_b, t2, rk, ax, bx):
+def _galois_b(st: HEStatic, sf, keyswitch, auto_b, t2, rk, ax, bx):
     """One Galois operation on a batch: σ_k, then the key switch against
-    rk (core.rotate._apply_galois)."""
+    rk (core.rotate._apply_galois); bx's combine is sf.add_mask."""
     ks_ax, ks_bx = keyswitch(t2, rk, auto_b(ax))
     return (bigint.mask_bits(ks_ax, st.logq),
-            bigint.mask_bits(bigint.add(auto_b(bx), ks_bx), st.logq))
+            sf.add_mask(auto_b(bx), ks_bx, st.logq))
 
 
 def make_he_rotate_step(st: HEStatic, device: str | torch.device, k: int,
@@ -138,7 +138,7 @@ def make_he_rotate_step(st: HEStatic, device: str | torch.device, k: int,
     def step(t2, rk, ax, bx):
         with device_range(op, "step"):
             check_operands(st, sf.device, ax, bx)
-            return _galois_b(st, keyswitch, auto_b, t2, rk, ax, bx)
+            return _galois_b(st, sf, keyswitch, auto_b, t2, rk, ax, bx)
 
     return step
 
@@ -158,10 +158,10 @@ def make_slot_sum_step(st: HEStatic, device: str | torch.device,
     def step(t2, rks, ax, bx):
         check_operands(st, sf.device, ax, bx)
         for auto_b, rk in zip(autos, rks, strict=True):
-            rot_ax, rot_bx = _galois_b(st, keyswitch, auto_b, t2, rk, ax,
-                                         bx)
-            ax = bigint.mask_bits(bigint.add(ax, rot_ax), logq)
-            bx = bigint.mask_bits(bigint.add(bx, rot_bx), logq)
+            rot_ax, rot_bx = _galois_b(st, sf, keyswitch, auto_b, t2, rk,
+                                       ax, bx)
+            ax = sf.add_mask(ax, rot_ax, logq)
+            bx = sf.add_mask(bx, rot_bx, logq)
         return ax, bx
 
     return step

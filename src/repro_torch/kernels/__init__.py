@@ -10,6 +10,9 @@ family; kernels/common.py builds them into one library at first use.
   crt/     limbs -> residues with 3-word accumulation (csrc/crt.cu)
   icrt/    residues -> centered limbs, loop-reordered Algo 6 with the
            quotient correction and center-lift folded in (csrc/icrt.cu)
+  carry/   the BigInt carry chains over the limb axis: the ÷Q rounding
+           shift and the combine's add and mask (csrc/carry.cu; no Pallas
+           kernel of the JAX package computes them)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.

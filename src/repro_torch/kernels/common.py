@@ -43,10 +43,12 @@ SMEM_LIMIT = 232_448  # dynamic shared memory a Hopper block may use
 # crt_mod2/crt_mod4 are crt with strategy "mod2"/"mod4", ntt_modified and
 # intt_modified the transforms with modified=True.
 # icrt_partial/icrt_finish are iCRT split at the cross-prime sum, for
-# primes spread over ranks.
+# primes spread over ranks. carry_shift/carry_add are the BigInt carry
+# chains of the β = 2^32 steps (the ÷Q shift; the combine's add and mask).
 LAUNCHES = {"modmul": 0, "ntt": 0, "intt": 0, "crt": 0, "icrt": 0,
             "crt_mod2": 0, "crt_mod4": 0, "ntt_modified": 0,
-            "intt_modified": 0, "icrt_partial": 0, "icrt_finish": 0}
+            "intt_modified": 0, "icrt_partial": 0, "icrt_finish": 0,
+            "carry_shift": 0, "carry_add": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PI = ctypes.POINTER(ctypes.c_int)
@@ -58,6 +60,8 @@ SIGNATURES = {
     "icrt_launch": [_P] * 9 + [_I] * 8 + [_P],
     "icrt_partial_launch": [_P] * 9 + [_I] * 6 + [_P],
     "icrt_finish_launch": [_P] * 6 + [_I] * 7 + [_P],
+    "carry_shift_round_launch": [_P] * 2 + [_I] * 4 + [_P],
+    "carry_add_mask_launch": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -324,7 +324,8 @@ def _check_batched_step(dev, p, B):
                                        **kw)(*tabs, *args)
         torch.cuda.synchronize()
         assert {k: v for k, v in common.LAUNCHES.items() if v} == {
-            crt_name: 5, ntt_name: 5, intt_name: 5, "icrt": 5, "modmul": 3}
+            crt_name: 5, ntt_name: 5, intt_name: 5, "icrt": 5, "modmul": 3,
+            "carry_shift": 2, "carry_add": 2}
         for i, ref in enumerate(refs):
             assert torch.equal(ax3[i], ref.ax) and torch.equal(bx3[i], ref.bx)
         if not kw:
@@ -361,6 +362,109 @@ def test_cuda_circuits_equal_plain_path(dev, name):
                                       cfg=PipelineConfig(use_kernels=False))
     assert torch.equal(got.ax, ref.ax) and torch.equal(got.bx, ref.bx)
     assert np.abs(H.decrypt_message(got, sk, p) - want).max() < limit
+
+
+def _limb_rows(n, L, seed):
+    """(n, L) int32 limb rows: random, then (where n allows) all ones, the
+    largest positive value, a negative value with zero limbs below, and
+    zero: the rows that run a carry through every limb or overflow."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 32, size=(n, L), dtype=np.uint64)
+    edges = [np.full(L, 0xFFFFFFFF), np.r_[np.full(L - 1, 0xFFFFFFFF),
+                                           0x7FFFFFFF],
+             np.r_[np.zeros(L - 1), 0x80000000], np.zeros(L)]
+    for i, e in enumerate(edges[:max(n - 1, 0)]):
+        x[i + 1] = e
+    return torch.from_numpy(x.astype(np.uint32).view(np.int32))
+
+
+# (L, s, out_limbs) of the ÷Q shift, and (L, bits) of the add and mask:
+# the cells' shapes and the edges of tests/test_torch_carry.py
+CARRY_SHIFTS = [(76, 1200, 38), (76, 1200, 37), (75, 1200, 36), (8, 64, 4),
+                (8, 70, 10), (5, 0, 5), (5, 0, 7), (3, 200, 4), (4, 33, 4),
+                (2, 31, 1), (3, 96, 2), (1, 17, 1), (4, 1, 4), (76, 0, 76)]
+CARRY_ADDS = [(38, 1200), (37, 1170), (36, 1140), (6, 128), (6, 192),
+              (6, 300), (6, 5), (3, 0)]
+
+
+def test_cuda_carry_kernels_match_plain_versions(dev):
+    """The carry kernels equal the BigInt functions bit for bit on rows
+    that carry through every limb, at one row, an odd count and a ragged
+    last block (129 and 300 rows, blocks of 128), each call one launch."""
+    from repro_torch.kernels.carry.ops import add_mask_op, shift_round_op
+    from repro_torch.kernels.carry.ref import add_mask_ref, shift_round_ref
+    common.reset_launches()
+    for n in (1, 7, 129, 300):
+        for L, s, out_limbs in CARRY_SHIFTS:
+            x = _limb_rows(n, L, L + s + n)
+            got = shift_round_op(x.to(dev), s, out_limbs)
+            assert torch.equal(got.cpu(), shift_round_ref(x, s, out_limbs))
+        for L, bits in CARRY_ADDS:
+            a = _limb_rows(n, L, bits + n)
+            b = _limb_rows(n, L, bits + n + 1).flip(0).contiguous()
+            got = add_mask_op(a.to(dev), b.to(dev), bits)
+            assert torch.equal(got.cpu(), add_mask_ref(a, b, bits))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in common.LAUNCHES.items() if v} == {
+        "carry_shift": 4 * len(CARRY_SHIFTS),
+        "carry_add": 4 * len(CARRY_ADDS)}
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_cuda_carry_kernels_at_the_cells_shapes(dev, level):
+    """At a B 16 step's rows (16·2^16) of the serve cell's three levels
+    (logq 1200, 1170, 1140): ÷Q from ks_limbs 76 / 76 / 75 to qlimbs
+    38 / 37 / 36, and the combine's add and mask at qlimbs, equal the
+    plain BigInt functions run on the card."""
+    from repro_torch.core import bigint
+    from repro_torch.dist.he_pipeline import he_static
+    from repro_torch.kernels.carry.ops import add_mask_op, shift_round_op
+    p = paper_params()
+    logq = (1200, 1170, 1140)[level]
+    st = he_static(p, logq)
+    K, ks = st.qlimbs, st.ks_limbs
+    assert (K, ks) == ((38, 76), (37, 76), (36, 75))[level]
+    g = torch.Generator(device=dev).manual_seed(level)
+
+    def words(L):
+        return torch.randint(-2**31, 2**31 - 1, (16, p.N, L), device=dev,
+                             dtype=torch.int32, generator=g)
+
+    x = words(ks)
+    assert torch.equal(shift_round_op(x, p.logQ, K),
+                       bigint.shift_right_round(x, p.logQ, out_limbs=K))
+    a, b = words(K), words(K)
+    assert torch.equal(add_mask_op(a, b, logq),
+                       bigint.mask_bits(bigint.add(a, b), logq))
+
+
+def test_cuda_b16_step_launches_each_carry_kernel_twice(dev, monkeypatch):
+    """A B 16 step through the kernels launches the ÷Q shift twice (ax,
+    bx) and the combine twice, and gives the words of the same step with
+    both carried by the plain BigInt functions."""
+    from repro_torch.core import bigint
+    from repro_torch.dist import he_pipeline as hp
+    from repro_torch.kernels.carry import ref
+    p = small_params()
+    _, _, evk = keygen(p, seed=3, device=dev)
+    st = hp.he_static(p, p.logQ)
+    tabs = hp.runtime_tables(make_context(p, p.logQ, dev), evk)
+    g = torch.Generator(device=dev).manual_seed(16)
+    args = [bigint.mask_bits(torch.randint(
+        -2**31, 2**31 - 1, (16, p.N, st.qlimbs), device=dev,
+        dtype=torch.int32, generator=g), p.logQ) for _ in range(4)]
+    common.reset_launches()
+    got = hp.make_he_mul_step(st, dev, use_kernels=True)(*tabs, *args)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["carry_shift"] == 2
+    assert common.LAUNCHES["carry_add"] == 2
+    monkeypatch.setattr(hp, "shift_round_op", ref.shift_round_ref)
+    monkeypatch.setattr(hp, "add_mask_op", ref.add_mask_ref)
+    common.reset_launches()
+    want = hp.make_he_mul_step(st, dev, use_kernels=True)(*tabs, *args)
+    torch.cuda.synchronize()
+    assert common.LAUNCHES["carry_shift"] == common.LAUNCHES["carry_add"] == 0
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("case", ["rotate", "rotate mod2+modified",
