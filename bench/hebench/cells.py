@@ -47,14 +47,18 @@ class Measure:
     failed: int = 0
     mismatched_words: int = 0
     compared_words: int = 0
+    # the numbers that decide `correct`, each by its name: {"value":
+    # the reading, "limit": the most it may read, "compared": how many
+    # answers or words it was read over}; the driver fills them
+    checks: dict = dataclasses.field(default_factory=dict)
 
 
 def correct(m: Measure) -> bool:
-    """Every sampled answer came and equals the reference's, word for
-    word, and something was compared."""
-    from hebench.check import LIMIT_MISMATCHED_WORDS
-    return (m.failed == 0 and m.compared_words > 0
-            and m.mismatched_words <= LIMIT_MISMATCHED_WORDS)
+    """Every sampled answer came, the driver gave a check, and each check
+    compared something and reads within its limit."""
+    return (m.failed == 0 and bool(m.checks)
+            and all(c["compared"] > 0 and c["value"] <= c["limit"]
+                    for c in m.checks.values()))
 
 
 def sync(device: torch.device) -> None:

@@ -17,3 +17,11 @@ def mismatched(got: torch.Tensor, want: torch.Tensor) -> int:
     if got.shape != want.shape or got.dtype != want.dtype:
         return max(got.numel(), want.numel())
     return int((got.to(want.device) != want).sum())
+
+
+def mismatched_words(mismatched: int, compared: int) -> dict:
+    """The check of the exact kinds, by its name: the output words that
+    differ from the reference's, of the words compared."""
+    return {"mismatched_words": {"value": mismatched,
+                                 "limit": LIMIT_MISMATCHED_WORDS,
+                                 "compared": compared}}

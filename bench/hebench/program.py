@@ -1,4 +1,5 @@
-"""Every call the benchmark makes into the system under test, `repro_torch`.
+"""Every call that the drivers of the HE Mul step and of serving
+(``stepcell``, ``servecell``) make into the system under test, `repro_torch`.
 
 Kept in one module so that what the benchmark takes from the program is
 plain to see: its parameters, its tables, the batched HE Mul step, the
@@ -6,6 +7,14 @@ server, and its launch counters. The benchmark's inputs (ciphertext and
 key words) are its own; the key's evaluation form with its Shoup
 companions is derived here by the program, as a server derives it from a
 key it is sent.
+
+A driver of another kind `K` (``bench/hebench/<K>cell.py``) keeps its calls
+into the program in ``bench/hebench/program_<K>.py`` (for example
+``program_bootstrap.py``) and nowhere else; it may call what this module
+has. Its plain reference is a file of its own, ``bench/<name>ref.py``,
+which imports nothing of the program, as ``bench/heref.py``; its roofline
+arithmetic is ``bench/hebench/roofline_<K>.py``. So a new kind joins as
+new files.
 """
 
 from __future__ import annotations

@@ -18,8 +18,10 @@ def idle_pct(m):
 
 def step_mfu_pct(m):
     """The whole step's share of the card's peak: the least time of the
-    window's steps (roofline.step_bound_s) over the window's time."""
-    if m.kind != "step" or not m.steps:
+    window's steps (roofline.step_bound_s) over the window's time. For
+    cells whose `steps` are batched HE Mul steps of `batch` pairs: the
+    metric's `workloads` in BENCHMARK.json name them."""
+    if not m.steps:
         return None
     bound = roofline.step_bound_s(m.config, m.batch, m.device_name)
     if bound is None:

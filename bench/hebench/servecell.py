@@ -198,7 +198,18 @@ def run(r: Run) -> Measure:
             m.mismatched_words += bad
             m.compared_words += sum(t.numel() for t in loop.kept[k])
             m.failed += int(bad > 0)
+    m.checks = check.mismatched_words(m.mismatched_words, m.compared_words)
     report.log(f"reference: {len(loop.kept)} requests in "
                f"{time.perf_counter() - t1:.2f} s")
     return m
 
+
+def end_to_end(m: Measure) -> dict:
+    """The 95th percentile of every window request's latency."""
+    return {"request_p95_ms": percentile(m.latencies_ms, 95)}
+
+
+def percentile(values: list, pct: float) -> float:
+    """The nearest-rank percentile of every value."""
+    s = sorted(values)
+    return s[max(0, -(-len(s) * pct // 100) - 1)] if s else float("nan")

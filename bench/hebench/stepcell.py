@@ -83,6 +83,12 @@ def run(r: Run) -> Measure:
     m.failed = sum(int(any(not torch.equal(a[i], b[i].cpu())
                            for a, b in zip(got, want)))
                    for i in range(len(idx)))
+    m.checks = check.mismatched_words(m.mismatched_words, m.compared_words)
     report.log(f"reference: {len(idx)} of {B} pairs in "
                f"{time.perf_counter() - t1:.2f} s")
     return m
+
+
+def end_to_end(m: Measure) -> dict:
+    """HE Muls completed over the window's whole time."""
+    return {"he_ops_per_s": m.ops / m.window_s}

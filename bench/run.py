@@ -5,15 +5,17 @@
 
 from the root of a checkout. The cell (BENCHMARK.json's `workloads`)
 names a configuration (its file under bench/configs/) and a traffic mix
-(bench/traffic/<mix>.json, whose `kind` picks its harness: "step" or
-"serve"). The run loads the program, makes its inputs from the seed, warms
-up, measures for `--seconds`, and checks a sample of what the timed path
-produced against the plain reference (bench/heref.py). With `--trace 0`
-it prints the cell's end-to-end metrics, with `--trace 1` its per-layer
-metrics (each read by bench/metrics/<metric>.py), as the last line of
-standard output; the numbers compared, with their limits, are the last
-lines of standard error. Without a CUDA card, without the program
-(src/repro_torch), or with the JAX package loaded, it prints no result
+(bench/traffic/<mix>.json), whose `kind` names its driver,
+bench/hebench/<kind>cell.py. The driver loads the program, makes its
+inputs from the seed, warms up, measures for `--seconds`, checks what
+the timed path produced against its plain reference, and gives the
+cell's end-to-end values and its checks. With `--trace 0` the run prints
+the cell's end-to-end metrics, with `--trace 1` its per-layer metrics
+(each read by bench/metrics/<metric>.py), as the last line of standard
+output; the numbers compared, with their limits, are the last lines of
+standard error. Without a CUDA card, without the program
+(src/repro_torch), with the JAX package loaded, or where the cell asks
+for a driver or a value that the files do not give, it prints no result
 and exits with a code other than 0.
 """
 
@@ -66,31 +68,40 @@ def main(argv=None) -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         return fail("the program (src/repro_torch) is not in this checkout")
     sys.path.insert(0, str(ROOT / "src"))
-    from hebench import cells, servecell, stepcell
-    from hebench.check import LIMIT_MISMATCHED_WORDS
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     report.log(f"card: {report.card_line()}")
-    drive = {"step": stepcell, "serve": servecell}[cell.traffic["kind"]]
+    return run_cell(cell, dev, args.seed, args.seconds, bool(args.trace))
+
+
+def run_cell(cell, dev, seed: int, seconds: float, trace: bool) -> int:
+    """Drive `cell` by its traffic's kind and print its result; the exit
+    code."""
+    from hebench import cells, report, spec
+
+    try:
+        drive = spec.driver(cell.traffic["kind"])
+    except spec.SpecError as e:
+        return fail(str(e))
     m = drive.run(cells.Run(
-        workload=args.workload, config=cell.config, traffic=cell.traffic,
-        seed=args.seed, seconds=args.seconds, trace=bool(args.trace),
-        device=dev, t_start=T_START))
-    result = outcome(cell, m, bool(args.trace), dev)
+        workload=cell.name, config=cell.config, traffic=cell.traffic,
+        seed=seed, seconds=seconds, trace=trace, device=dev,
+        t_start=T_START))
+    try:
+        result = outcome(cell, drive, m, trace)
+    except spec.SpecError as e:
+        return fail(str(e))
     bad = report.forbidden_modules()
     if bad:
         return fail(f"the process holds {bad}: the benchmark runs without "
                     "the JAX package", 3)
-    report.emit(result, {"mismatched_words": {
-        "value": m.mismatched_words, "limit": LIMIT_MISMATCHED_WORDS,
-        "compared": m.compared_words}})
+    report.emit(result, m.checks)
     return 0
 
 
-def outcome(cell, m, trace: bool, dev) -> dict:
+def outcome(cell, drive, m, trace: bool) -> dict:
     """The result line's keys but `checks`."""
-    import torch
     from hebench import cells, spec
 
     metrics = {}
@@ -100,16 +111,18 @@ def outcome(cell, m, trace: bool, dev) -> dict:
             if v is not None:
                 metrics[entry["name"]] = {"value": v, "unit": entry["unit"]}
     else:
-        values = {"setup_s": m.setup_s}
-        if m.kind == "step":
-            values["he_ops_per_s"] = m.ops / m.window_s
-        else:
-            values["request_p95_ms"] = percentile(m.latencies_ms, 95)
+        values = {"setup_s": m.setup_s, **drive.end_to_end(m)}
         for entry in cell.end_to_end:
+            if entry["name"] not in values:
+                raise spec.SpecError(
+                    f"{cell.name} reports {entry['name']}, which the driver "
+                    f"of kind {cell.traffic['kind']!r} does not give (it "
+                    f"gives {sorted(values)})")
             metrics[entry["name"]] = {"value": values[entry["name"]],
                                       "unit": entry["unit"]}
-    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(dev),
-              "count": 1, "memory_peak_bytes": m.memory_peak_bytes}
+    device = {"platform": "gpu", "kind": m.device_name,
+              "count": cell.workload["chips"],
+              "memory_peak_bytes": m.memory_peak_bytes}
     out = {"correct": cells.correct(m), "attempted": m.attempted, "failed": m.failed,
            "metrics": metrics, "device": device}
     if trace and m.trace is not None:
@@ -117,12 +130,6 @@ def outcome(cell, m, trace: bool, dev) -> dict:
         device["window_s"] = m.trace.window_s
         out["breakdown"] = m.trace.breakdown()
     return out
-
-
-def percentile(values: list, pct: float) -> float:
-    """The nearest-rank percentile of every value."""
-    s = sorted(values)
-    return s[max(0, -(-len(s) * pct // 100) - 1)] if s else float("nan")
 
 
 if __name__ == "__main__":

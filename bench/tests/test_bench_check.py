@@ -117,7 +117,7 @@ def test_the_control_fails_each_cell_on_the_card(card, workload):
     check's number (mismatched words) over three seeds, each far above
     the limit of 0. Printed for the record."""
     cell = spec.cell(spec.load(ROOT), workload, ROOT)
-    drive = {"step": stepcell, "serve": servecell}[cell.traffic["kind"]]
+    drive = spec.driver(cell.traffic["kind"])
     readings = []
     for seed in (SEED, SEED + 1, SEED + 2):
         m = drive.run(cells.Run(
